@@ -1,0 +1,184 @@
+"""Closed-loop lossy-network rollout engine, batched (counterpart of
+``rtmpc_tpu/parallel/rollout.py``).
+
+A Python loop over time replaces ``lax.scan`` and every tensor carries the
+batch as its leading axis in place of ``vmap``.  Per step t, for all B
+rollouts at once:
+
+  1. the two-phase ADMM solve of the tracking QP from the current estimate,
+     warm-started from the previous step's iterate (solver "admm": batched
+     PyTorch, ``ops/qp.py``; solver "cuda": one launch of the fused kernel
+     per phase, ``ops/qp_cuda.py``);
+  2. the packet ``U_t = [u_nom(0..N-1), ubar + K xbar]``;
+  3. the estimator records the optimal initial nominal state;
+  4. the actuator processes the packet gated by theta;
+  5. the linear plant ``x+ = A x + B u + w``;
+  6. the estimator processes the reply gated by gamma.
+
+A rollout whose QP solution goes non-finite is frozen (state kept,
+``feasible`` False, timers still advancing), as in the JAX engine without
+infeasibility certificates (not ported yet).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..models.specs import ControllerArrays, ControllerConfig
+from ..ops.qp import ADMMSolution, ADMMState, admm_solve, init_admm_state
+from ..ops.qp_cuda import admm_solve_cuda
+from ..protocol.actuator import ActuatorState, actuator_step, init_actuator
+from ..protocol.estimator import (EstimatorState, estimator_update,
+                                  init_estimator, store_sequence)
+from ..tree import tree_map, tree_to
+
+__all__ = ["RolloutCarry", "StepOutputs", "init_carry",
+           "make_batched_rollout", "tracking_error_rms"]
+
+
+class RolloutCarry(NamedTuple):
+    x: torch.Tensor           # (B, nx) plant state
+    act: ActuatorState
+    est: EstimatorState
+    admm: ADMMState           # warm-start iterate
+    feasible: torch.Tensor    # (B,) bool
+
+    def to(self, device) -> "RolloutCarry":
+        return tree_to(self, device)
+
+
+class StepOutputs(NamedTuple):
+    x: torch.Tensor           # (B, nx) plant state AFTER the step (x_{t+1})
+    u: torch.Tensor           # (B, nu) applied input
+    x_nom: torch.Tensor       # (B, nx) actuator nominal state at step t
+    x_hat: torch.Tensor       # (B, nx) estimate the controller used at step t
+    Theta: torch.Tensor       # (B,) int32 consistency indicator
+    r_prim: torch.Tensor      # (B,) QP primal residual (scaled)
+    r_dual: torch.Tensor      # (B,) QP dual residual (scaled)
+    feasible: torch.Tensor    # (B,) bool after this step
+
+
+def init_carry(arrays: ControllerArrays, cfg: ControllerConfig,
+               x0: torch.Tensor) -> RolloutCarry:
+    """Initial carry for the batch of initial states ``x0 (B, nx)``."""
+    x0 = x0.to(dtype=arrays.A.dtype, device=arrays.A.device)
+    B = x0.shape[0]
+    return RolloutCarry(
+        x=x0,
+        act=init_actuator(cfg.N, cfg.nu, x0),
+        est=init_estimator(x0),
+        admm=init_admm_state(arrays.admm, B),
+        feasible=torch.ones(B, dtype=torch.bool, device=x0.device))
+
+
+def _extract_packet(arrays: ControllerArrays, cfg: ControllerConfig,
+                    z: torch.Tensor):
+    """Encapsulation (``TubeTrackingMPC.encapsulate`` :211-227):
+    ``U_t = [u_nom(.), ubar + K xbar]`` (B, N+1, nu), plus the optimal
+    initial nominal state x_nom(0) and xbar, each (B, nx)."""
+    B = z.shape[0]
+    u_traj = z[:, cfg.u_off:cfg.u_off + cfg.N * cfg.nu].reshape(
+        B, cfg.N, cfg.nu)
+    xbar = z[:, cfg.xbar_off:cfg.xbar_off + cfg.nx]
+    ubar = z[:, cfg.ubar_off:cfg.ubar_off + cfg.nu]
+    u_ss = ubar + xbar @ arrays.K_ss.T
+    U_t = torch.cat([u_traj, u_ss[:, None]], dim=1)
+    return U_t, z[:, :cfg.nx], xbar
+
+
+def _solve(arrays: ControllerArrays, cfg: ControllerConfig,
+           theta_qp: torch.Tensor, warm: ADMMState) -> ADMMSolution:
+    """The two-phase schedule as a state hand-off: phase 1 at ``admm``,
+    phase 2 at ``admm2`` (rho scaled) from phase 1's iterate; residuals
+    are phase 2's."""
+    solve = admm_solve_cuda if cfg.solver == "cuda" else admm_solve
+    sol = solve(arrays.admm, theta_qp, warm, iters=cfg.iters)
+    if cfg.iters2 > 0:
+        sol = solve(arrays.admm2, theta_qp, sol.state, iters=cfg.iters2)
+    return sol
+
+
+def _select(keep, a, b):
+    """``a`` where the per-row flag ``keep (B,)`` is set, else ``b``."""
+    return torch.where(keep.reshape(keep.shape + (1,) * (a.dim() - 1)), a, b)
+
+
+def _step(arrays: ControllerArrays, cfg: ControllerConfig,
+          actuator_mode: str, carry: RolloutCarry, ref_t, w_t, theta_t,
+          gamma_t):
+    theta_qp = torch.cat([carry.est.x_hat, ref_t.to(carry.x.dtype)], dim=-1)
+    sol = _solve(arrays, cfg, theta_qp, carry.admm)
+    z = sol.z_primal
+    U_t, x_nom0, _ = _extract_packet(arrays, cfg, z)
+    feasible = carry.feasible & torch.isfinite(z.sum(dim=1))
+
+    est1 = store_sequence(carry.est, U_t, x_nom0)
+    u_t, plant_pkt, act_new, aux = actuator_step(
+        carry.act, U_t, carry.est.q, x_nom0, carry.x, theta_t,
+        arrays.A, arrays.B, arrays.K_ss, arrays.K_plant, cfg.N,
+        mode=actuator_mode)
+    x_next = carry.x @ arrays.A.T + u_t @ arrays.B.T + w_t
+    est_new = estimator_update(est1, plant_pkt, gamma_t, arrays.A, arrays.B,
+                               U_t)
+
+    new_carry = RolloutCarry(x=x_next, act=act_new, est=est_new,
+                             admm=sol.state, feasible=feasible)
+    # a frozen rollout keeps its state, but its timers advance so the
+    # indices stay aligned with the time loop
+    frozen = RolloutCarry(
+        x=carry.x,
+        act=carry.act._replace(t=carry.act.t + 1),
+        est=carry.est._replace(t=carry.est.t + 1),
+        admm=carry.admm, feasible=feasible)
+    out_carry = tree_map(lambda a, b: _select(feasible, a, b),
+                         new_carry, frozen)
+    out = StepOutputs(
+        x=out_carry.x, u=u_t, x_nom=aux["x_nom"], x_hat=carry.est.x_hat,
+        Theta=aux["Theta"], r_prim=sol.r_prim, r_dual=sol.r_dual,
+        feasible=feasible)
+    return out_carry, out
+
+
+def make_batched_rollout(arrays: ControllerArrays, cfg: ControllerConfig,
+                         T: int, actuator_mode: str = "consistent"
+                         ) -> Callable:
+    """Build ``rollout(x0, refs, w, theta, gamma) -> (carry, StepOutputs)``.
+
+    Inputs are batch-major: ``x0 (B, nx)``, ``refs``/``w`` ``(B, T, nx)``,
+    ``theta``/``gamma`` ``(B, T)`` int32, on the arrays' device.  Outputs
+    are batch-major too (``(B, T, .)``), as the JAX batched engine returns
+    them.  ``cfg.solver`` picks the QP solve of step 1."""
+
+    def rollout(x0, refs, w, theta, gamma):
+        carry = init_carry(arrays, cfg, x0)
+        w = w.to(carry.x.dtype)
+        outs = []
+        for t in range(T):
+            carry, out = _step(arrays, cfg, actuator_mode, carry,
+                               refs[:, t], w[:, t], theta[:, t], gamma[:, t])
+            outs.append(out)
+        stacked = tree_map(lambda *a: torch.stack(a, dim=1), *outs)
+        return carry, stacked
+
+    return rollout
+
+
+def tracking_error_rms(x0, xs, refs, feasible=None):
+    """The reference's RMS tracking-error metric
+    (``results_linear_system.py:291``) over t = 0..T-1 (x0 included, the
+    final state left out):
+
+        1/T * sqrt( sum_t (x_1(t) - ref(t))^2 + sum_{j>=2} x_j(t)^2 )
+
+    ``xs``: ``(..., T, nx)`` post-step states; ``refs``: ``(..., T, nx)``;
+    ``x0``: ``(..., nx)``.  NaN where ``feasible`` is False."""
+    traj = torch.cat([x0.unsqueeze(-2), xs[..., :-1, :]], dim=-2)
+    T = traj.shape[-2]
+    err2 = ((traj[..., 0] - refs[..., 0]) ** 2).sum(dim=-1)
+    err2 = err2 + (traj[..., 1:] ** 2).sum(dim=(-2, -1))
+    err = torch.sqrt(err2) / T
+    if feasible is not None:
+        err = torch.where(feasible, err, torch.full_like(err, float("nan")))
+    return err
