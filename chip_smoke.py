@@ -26,6 +26,32 @@ fail loudly (non-zero exit) on any error:
   7. closed-loop parity at B=256: solver "cuda" against solver "admm" on
      the card and against solver "admm" in float64 on the CPU.
 
+Then the paper's Fig. 3a slice, the 4-D cartpole (N=20) of
+``rtmpc_tpu_torch.apps.results_linear``:
+
+  8. the kernel's large-composite path (``admm_kernel_l2``) at the
+     cartpole's shapes, both QPs (112 + 792 and 112 + 840 columns), at
+     B=200 (phase 2 warm from the kernel's own phase-1 state) and B=37
+     (ragged), 200 cold then 200 warm iterations: against its plain
+     version in float32, and against the plain version in float64 no
+     further than ``F64_RATIO`` times plain float32; times of kernel and
+     plain version for one 200-iteration phase at B=200;
+  9. (run after 10, whose trajectories give its inputs) the structured
+     interior point in float64 on the card against the CPU, on 64 thetas
+     from the sweep's sample trajectories;
+ 10. the full sweep on the card: float64 ``ip_riccati``, both arms, 10
+     loss probabilities x 20 runs x 250 steps from the committed draws;
+     ``compare_linear`` against ``RESULTS_LINEAR_CPU_F64_r05.json``
+     passes, the tube arm is feasible everywhere, every
+     ``track_infeasible`` equals the truth's (the app's own checks);
+     the wall time of each arm and of a solve is printed;
+ 11. the same sweep under ``--solver cuda`` (the ADMM kernel, float32):
+     2 kernel launches a step on the tube arm, 3 on the tracking arm (the
+     certificate's extra iterations are one more), every output finite,
+     the tube arm feasible, the tube invariant on the sample trajectories;
+     its rows are printed against the truth but not gated (the ADMM does
+     not reach trajectory parity on this geometry).
+
 Prints the kernels' JSON record on the line before the last and, as the
 last line, ``{"ok": true, "device": {...}}``.
 """
@@ -59,6 +85,25 @@ TUBE_TOL = 1e-4
 # (1.7e-4 against solver "admm" on the card, 1.1e-4 against the float64
 # CPU run).
 DX_PARITY = 1e-3
+
+# Phase 8, the cartpole QPs through the kernel's L2 path.
+CP_BATCHES = (200, 37)
+CP_ITERS = 200
+# Float32 kernel vs plain version: 5-10x what an NVIDIA H100 80GB HBM3 at
+# 700 W read (z 2.09e-4, y 2.72e-3: 904- and 952-term sums in two orders,
+# scaled into y by rho = 500 on the equality rows).  Against float64 the
+# kernel was no further than plain float32 (F64_RATIO holds).
+CP_Z_ATOL, CP_Y_ATOL = 1.5e-3, 2e-2
+# Phase 9, the interior point on the card against the CPU, both float64.
+# The cartpole's optimal face is flat (scaled cost cond ~1e20): summing in
+# other orders moves the converged z along it at equal objectives.  Read on
+# the same card: max|dz| 1.34e-2, objectives 2.8e-10 relative, r_prim
+# <= 4.8e-11 and r_dual <= 1.24e-6 on both.
+IP_B = 64
+IP_Z_ATOL = 5e-2
+IP_OBJ_RTOL = 1e-8
+IP_R_PRIM = 1e-9        # both runs' primal residuals at or below this
+IP_R_DUAL = 1e-5        # and their dual residuals
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
@@ -123,21 +168,23 @@ def _inputs(B, dev, seed):
     return theta, gamma, w
 
 
-def _compare(arrays, arrays64, th1, th2, warm_from_kernel):
+def _compare(arrays, arrays64, th1, th2, warm_from_kernel,
+             iters=(ITERS, ITERS2), bars=(Z_ATOL, Y_ATOL), label=""):
     """Cold phase 1 at ``admm``, then warm phase 2 at ``admm2`` from one
     shared state (the kernel's phase-1 iterate, as on the main path, or the
     plain version's): the kernel against its plain version in float32 and
     both against the plain version in float64."""
     from rtmpc_tpu_torch.ops.qp_cuda import (_admm_solve_cuda_plain,
                                              admm_solve_cuda)
-    k1 = admm_solve_cuda(arrays.admm, th1, None, ITERS)
-    p1 = _admm_solve_cuda_plain(arrays.admm, th1, None, ITERS)
+    it1, it2 = iters
+    k1 = admm_solve_cuda(arrays.admm, th1, None, it1)
+    p1 = _admm_solve_cuda_plain(arrays.admm, th1, None, it1)
     start = k1.state if warm_from_kernel else p1.state
-    k2 = admm_solve_cuda(arrays.admm2, th2, start, ITERS2)
-    p2 = _admm_solve_cuda_plain(arrays.admm2, th2, start, ITERS2)
-    d1 = _admm_solve_cuda_plain(arrays64.admm, th1.double(), None, ITERS)
+    k2 = admm_solve_cuda(arrays.admm2, th2, start, it2)
+    p2 = _admm_solve_cuda_plain(arrays.admm2, th2, start, it2)
+    d1 = _admm_solve_cuda_plain(arrays64.admm, th1.double(), None, it1)
     d2 = _admm_solve_cuda_plain(arrays64.admm2, th2.double(),
-                                _double(start), ITERS2)
+                                _double(start), it2)
     torch.cuda.synchronize()
     errs = {}
     for phase, k, p, d in (("cold", k1, p1, d1), ("warm", k2, p2, d2)):
@@ -150,13 +197,14 @@ def _compare(arrays, arrays64, th1, th2, warm_from_kernel):
             errs[which + phase + "_y"] = _max_err(got.state.y, d.state.y)
         for t in (*k.state, k.r_prim, k.r_dual):
             _require(bool(torch.isfinite(t).all()), phase)
-    print("kernel vs plain (B=%d, %d+%d iterations, phase 2 warm from the "
+    print("%skernel vs plain (B=%d, %d+%d iterations, phase 2 warm from the "
           "%s phase-1 state): %s"
-          % (th1.shape[0], ITERS, ITERS2,
+          % (label + " " if label else "", th1.shape[0], it1, it2,
              "kernel's" if warm_from_kernel else "plain version's",
              json.dumps(errs)))
-    bars = {"cold_z": Z_ATOL, "warm_z": Z_ATOL, "cold_y": Y_ATOL,
-            "warm_y": Y_ATOL}
+    z_bar, y_bar = bars
+    bars = {"cold_z": z_bar, "warm_z": z_bar, "cold_y": y_bar,
+            "warm_y": y_bar}
     for key, bar in bars.items():
         _require(errs[key] <= bar, (th1.shape[0], key, errs[key], bar))
         f64, plain64 = errs["f64_" + key], errs["plain_f64_" + key]
@@ -267,6 +315,140 @@ def phase_parity(setup, arrays, cfg, dev):
     _require(dx <= DX_PARITY and dx64 <= DX_PARITY, (dx, dx64))
 
 
+def _cartpole_setups():
+    """The Fig. 3a controllers as the app sets them up."""
+    from rtmpc_tpu_torch.apps.scenarios import cartpole_scenario
+    from rtmpc_tpu_torch.models import setup_tracking, setup_tube_tracking
+    sc = cartpole_scenario()
+    tube = setup_tube_tracking(sc.A, sc.B, sc.Q, sc.R, sc.N, sc.X, sc.U,
+                               sc.W, fixed_initial_state=True, rpi_method=1)
+    track = setup_tracking(sc.A, sc.B, sc.Q, sc.R, sc.N, sc.X, sc.U)
+    return sc, {"tube": tube, "track": track}
+
+
+def _cartpole_thetas(sc, B, rng, dev, dtype):
+    theta = np.zeros((B, 8))
+    theta[:, :4] = rng.uniform(-1, 1, (B, 4)) * np.array([0.3, 0.5, 0.05,
+                                                           0.5])
+    theta[:, 4] = rng.uniform(-1.0, 6.0, B)   # 6 m is outside X: saturates
+    return torch.tensor(theta, dtype=dtype, device=dev)
+
+
+def phase_cartpole_kernel(sc, setups, dev):
+    """Phase 8: the L2 path against its plain version at the cartpole's
+    shapes; returns (max error, kernel ms, plain ms) of the tracking QP's
+    timed phase (the wider of the two)."""
+    from rtmpc_tpu_torch.apps.common import ADMM_SCHEDULE
+    from rtmpc_tpu_torch.ops.qp_cuda import (_admm_solve_cuda_plain,
+                                             admm_solve_cuda, kernel_path)
+    kw = dict(ADMM_SCHEDULE, solver="cuda")
+    rng = np.random.default_rng(8)
+    err, times = 0.0, {}
+    for arm, setup in setups.items():
+        arrays, _ = setup.to_device(torch.float32, dev, **kw)
+        arrays64, _ = setup.to_device(torch.float64, dev, **kw)
+        n_cols = arrays.admm.Kinv.shape[0] + arrays.admm.As.shape[0]
+        print("%s QP: n_p + m_p = %d (%s path)"
+              % (arm, n_cols, kernel_path(n_cols)))
+        _require(kernel_path(n_cols) == "l2", (arm, n_cols))
+        for B in CP_BATCHES:
+            th = _cartpole_thetas(sc, B, rng, dev, torch.float32)
+            err = max(err, _compare(
+                arrays, arrays64, th, th, warm_from_kernel=B == 200,
+                iters=(CP_ITERS, CP_ITERS), bars=(CP_Z_ATOL, CP_Y_ATOL),
+                label=arm))
+        th = _cartpole_thetas(sc, 200, rng, dev, torch.float32)
+        t = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = admm_solve_cuda if which == "kernel" else \
+                _admm_solve_cuda_plain
+            t[which].append(_time_ms(
+                lambda: fn(arrays.admm, th, None, CP_ITERS), reps=5))
+        print("%s QP, one %d-iteration phase, B=200: kernel %s ms, plain "
+              "%s ms" % (arm, CP_ITERS, t["kernel"], t["plain"]))
+        times[arm] = (float(np.mean(t["kernel"])), float(np.mean(t["plain"])))
+    return err, times["track"][0], times["track"][1]
+
+
+def phase_ip_card_vs_cpu(sc, setups, dev, tube_sweep):
+    """Phase 9: ``ip_riccati_solve`` in float64 on the card against the
+    CPU on 64 thetas from the sweep: nominal states of phase 10's sample
+    runs (the tube arm's run 5 at each loss probability, every 37th step;
+    a true plant state can leave the tightened set and make the QP
+    infeasible), reference 0.5, every eighth 6 m (outside X: it
+    saturates)."""
+    from rtmpc_tpu_torch.ops.ip_riccati import ip_riccati_solve
+    traj = tube_sweep.sample_x_nom
+    P, T = traj.shape[:2]
+    theta = np.zeros((IP_B, 8))
+    for i in range(IP_B):
+        theta[i, :4] = traj[i % P, (37 * i) % T]
+    theta[:, 4] = sc.ref_value
+    theta[::8, 4] = 6.0
+    worst = {}
+    for arm, setup in setups.items():
+        tmpl = setup.template
+        sols = {}
+        for where in ("card", "cpu"):
+            d = dev if where == "card" else torch.device("cpu")
+            arrays, cfg = setup.to_device(torch.float64, d,
+                                          solver="ip_riccati", ip_iters=30)
+            th = torch.tensor(theta, dtype=torch.float64, device=d)
+            t0 = time.perf_counter()
+            sols[where] = ip_riccati_solve(arrays.ric, th, cfg.N,
+                                           iters=cfg.ip_iters)
+            if where == "card":
+                torch.cuda.synchronize()
+            print("%s QP, B=%d, on the %s: %.2f s" % (
+                arm, IP_B, where, time.perf_counter() - t0))
+        card, cpu = sols["card"], sols["cpu"]
+        z_card = card.z_primal.cpu().numpy()
+        z_cpu = cpu.z_primal.numpy()
+        dz = float(np.abs(z_card - z_cpu).max())
+        q = theta @ tmpl.Mq.T + tmpl.q0
+
+        def objective(z):
+            return 0.5 * np.einsum("bi,ij,bj->b", z, tmpl.P, z) \
+                + (q * z).sum(1)
+
+        o_card, o_cpu = objective(z_card), objective(z_cpu)
+        dobj = float((np.abs(o_card - o_cpu) / np.abs(o_cpu)).max())
+        res = {k: float(getattr(card, k).max())
+               for k in ("r_prim", "r_dual")}
+        res_cpu = {k: float(getattr(cpu, k).max())
+                   for k in ("r_prim", "r_dual")}
+        print("%s QP: card vs CPU max|dz| %.3e, objective rel %.3e; "
+              "card r_prim %.3e r_dual %.3e, CPU r_prim %.3e r_dual %.3e"
+              % (arm, dz, dobj, res["r_prim"], res["r_dual"],
+                 res_cpu["r_prim"], res_cpu["r_dual"]))
+        for r in (res, res_cpu):
+            _require(r["r_prim"] <= IP_R_PRIM and r["r_dual"] <= IP_R_DUAL,
+                     (arm, r))
+        _require(dobj <= IP_OBJ_RTOL, (arm, dobj))
+        _require(dz <= IP_Z_ATOL, (arm, dz))
+        worst[arm] = dz
+    return worst
+
+
+def phase_sweep(solver, out_json, setups):
+    """Phases 10 and 11: the app's full sweep on the card."""
+    from rtmpc_tpu_torch.apps import results_linear
+    args = results_linear.parse_args(
+        ["--device", "cuda", "--solver", solver, "--save-json", out_json])
+    t0 = time.perf_counter()
+    out = results_linear.run(args, (setups["tube"], setups["track"]))
+    print("sweep (%s) done in %.1f s" % (solver, time.perf_counter() - t0))
+    for arm in ("tube", "track"):
+        res = out[arm]
+        _require(res.tracking_error.shape == (10, 20),
+                 res.tracking_error.shape)
+        for a in (res.sample_traj, res.sample_x_nom):
+            _require(bool(np.isfinite(a).all()), (solver, arm))
+    _require(bool(out["tube"].feasible.all()), "tube arm feasible")
+    _require(bool(np.isfinite(out["tube"].tracking_error).all()))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; this smoke run needs a GPU")
@@ -300,19 +482,60 @@ def main():
     err, ms, plain_ms = phase_kernel_vs_plain(arrays, arrays64, dev)
     launches, _ = phase_full_loop(arrays, cfg, dev)
     phase_parity(setup, arrays, cfg, dev)
+
+    # the Fig. 3a slice
+    from rtmpc_tpu_torch.ops.qp_cuda import admm_solve_cuda
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    sc, setups = _cartpole_setups()
+    print("cartpole setup %.1f s" % (time.perf_counter() - t0))
+    err_l2, ms_l2, plain_ms_l2 = phase_cartpole_kernel(sc, setups, dev)
+    sweep = phase_sweep(
+        "ip_riccati", os.path.join(out_dir, "results_linear_ip_riccati.json"),
+        setups)
+    _require(sweep["ok"] and sweep["compared"], "phase 10 checks")
+    phase_ip_card_vs_cpu(sc, setups, dev, sweep["tube"])
+    # phase 11: the main path of the L2 path; counts from 0
+    torch.cuda.synchronize()
+    admm_solve_cuda.launches = 0
+    for path in admm_solve_cuda.launches_by_path:
+        admm_solve_cuda.launches_by_path[path] = 0
+    out = phase_sweep("cuda", os.path.join(out_dir,
+                                           "results_linear_cuda.json"),
+                      setups)
+    torch.cuda.synchronize()
+    launches_l2 = admm_solve_cuda.launches_by_path["l2"]
+    counts = out["counts"]
+    print("phase 11 kernel launches: %s (l2 path %d)"
+          % ({arm: c["kernel_launches"] for arm, c in counts.items()},
+             launches_l2))
+    T_sweep = out["payload"]["T"]
+    _require(counts["tube"]["kernel_launches"] == 2 * T_sweep, counts)
+    _require(counts["track"]["kernel_launches"] == 3 * T_sweep, counts)
+    _require(launches_l2 == 5 * T_sweep, launches_l2)
+    arrays_tube = out["arrays_tube"]
+    tube = out["tube"]
+    xs = np.concatenate([np.zeros((10, 1, 4)), tube.sample_traj[:, :-1]], 1)
+    viol = float(((xs - tube.sample_x_nom) @ arrays_tube.Hz.double().cpu()
+                  .numpy().T - arrays_tube.hz.double().cpu().numpy()).max())
+    print("tube invariant on the sample trajectories: max Hz(x - x_nom) - "
+          "hz = %.3e (Z has %d rows)" % (viol, setups["tube"].Z.nrows))
+    _require(viol <= TUBE_TOL, viol)
     _require("jax" not in sys.modules)
 
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "admm_solve_cuda",
-        "route": "cuda",
-        "source": "rtmpc_tpu_torch/csrc/admm_kernel.cu",
-        "replaces": "rtmpc_tpu/ops/qp_pallas.py:106",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    kernel = dict(name="admm_solve_cuda", route="cuda",
+                  source="rtmpc_tpu_torch/csrc/admm_kernel.cu",
+                  replaces="rtmpc_tpu/ops/qp_pallas.py:106")
+    print(json.dumps({"kernels": [
+        dict(kernel, name="admm_solve_cuda (admm_kernel, n_p+m_p <= 192)",
+             launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms),
+        dict(kernel, name="admm_solve_cuda (admm_kernel_l2, n_p+m_p <= "
+             "2048)", launches=launches_l2, max_abs_err=err_l2, ms=ms_l2,
+             plain_ms=plain_ms_l2),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

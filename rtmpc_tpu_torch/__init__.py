@@ -14,12 +14,16 @@ which import no JAX either.
 
 Subpackages
 -----------
-ops       : precision policy, QP assembly, batched ADMM, the CUDA kernel
-            wrapper.
-models    : host setup of the flagship tube-tracking controller and its
-            freeze into device tensors.
+ops       : precision policy, QP assembly, batched ADMM, infeasibility
+            certificates, the CUDA kernel wrapper, the structured interior
+            point.
+models    : host setup of the tube-tracking and tracking controllers, the
+            cartpole's linearization, and their freeze into tensors.
 protocol  : lossy channel draws, consistent/smart actuator, estimator.
-parallel  : the batched closed-loop rollout engine.
+parallel  : the batched closed-loop rollout engine and Monte-Carlo sweeps.
+apps      : ``results_linear`` (the paper's Fig. 3a sweep) and its
+            scenario.
+data      : the committed draws of the Fig. 3a sweep at seed 0.
 """
 
 from .ops import precision as _precision  # noqa: F401  (applies the policy)

@@ -9,8 +9,10 @@ freezes it into ``ControllerArrays`` (tensors) and ``ControllerConfig``
 (static metadata) for the rollout engine.
 
 Ported so far: the tube-tracking variant (``TubeTrackingMPC.py``, the
-flagship of ``bench.py``).  The other ``setup_*`` variants, the extended
-(packet-received) problem and condensed templates are not ported yet.
+flagship of ``bench.py`` and the robust arm of the Results apps) and the
+tracking variant (``TrackingMPC.py``, the non-robust arm).  The regulator
+variants, the extended (packet-received) problem and condensed templates
+are not ported yet.
 
 ``arrays_from_numpy`` bridges the other way: it builds the port's arrays
 from the JAX package's ``ControllerArrays`` converted to numpy.
@@ -31,16 +33,19 @@ from rtmpc_tpu.sets.invariant import (determine_mrpi, max_admissible_set,
 
 from ..ops.assembly import QPTemplate, build_mpc_qp
 from ..ops.precision import DEFAULT_DTYPE
+from ..ops.ip_riccati import RiccatiIPSpec, prepare_ip_riccati
 from ..ops.qp import PAD_TO, ADMMSpec, prepare_admm
 from ..tree import tree_to
 
 __all__ = ["MPCSetup", "ControllerArrays", "ControllerConfig",
-           "setup_tube_tracking", "flagship_setup", "arrays_from_numpy",
-           "spec_from_numpy", "SOLVERS"]
+           "setup_tracking", "setup_tube_tracking", "flagship_setup",
+           "arrays_from_numpy", "spec_from_numpy", "ric_spec_from_numpy",
+           "SOLVERS"]
 
 # "admm": batched PyTorch ADMM (ops/qp.py); "cuda": the fused CUDA kernel
-# (ops/qp_cuda.py), which runs its plain PyTorch version on CPU tensors.
-SOLVERS = ("admm", "cuda")
+# (ops/qp_cuda.py), which runs its plain PyTorch version on CPU tensors;
+# "ip_riccati": the structured interior point (ops/ip_riccati.py).
+SOLVERS = ("admm", "cuda", "ip_riccati")
 
 # The JAX package places the [xt | zt] output slots of its composites at
 # 128-lane boundaries for the TPU (rtmpc_tpu/ops/qp.py:272-286).
@@ -85,26 +90,39 @@ class MPCSetup:
 
     def to_device(self, dtype: torch.dtype = DEFAULT_DTYPE, device="cpu",
                   iters: int = 100, iters2: int = 0, rho2_scale: float = 0.1,
-                  alpha: float = 1.6, solver: str = "admm"):
+                  alpha: float = 1.6, solver: str = "admm",
+                  ip_iters: int = 25):
         """Freeze into ``(ControllerArrays, ControllerConfig)``.
 
-        Same preparation as the JAX package's ``to_device``: rho is tuned
-        at ``max(100, min(iters + iters2, 600))`` iterations, and
-        ``iters2 > 0`` adds the phase-2 spec at ``rho * rho2_scale``.  ``solver`` is one of
-        ``SOLVERS``.
+        ``solver`` is one of ``SOLVERS``.  The ADMM solvers get the JAX
+        package's preparation: rho is tuned at ``max(100, min(iters +
+        iters2, 600))`` iterations, and ``iters2 > 0`` adds the phase-2
+        spec at ``rho * rho2_scale``.  Solver "ip_riccati" gets the
+        structured IP's spec (``arrays.ric``) from the uncondensed template
+        and runs at most ``ip_iters`` iterations a solve; it builds no
+        ADMM spec (``arrays.admm`` is None).
         """
         if solver not in SOLVERS:
             raise NotImplementedError(
                 f"solver {solver!r} is not ported yet (ported: {SOLVERS})")
         tmpl = self.template
-        tune_iters = max(100, min(iters + iters2, 600))
-        r2s = rho2_scale if iters2 > 0 else None
-        admm = prepare_admm(tmpl, alpha=alpha, dtype=dtype, device=device,
-                            tune_iters=tune_iters, rho2_scale=r2s)
-        admm, admm2 = admm if iters2 > 0 else (admm, admm)
+        admm = admm2 = ric = None
+        if solver == "ip_riccati":
+            ric = prepare_ip_riccati(tmpl, dtype=dtype, device=device)
+        else:
+            tune_iters = max(100, min(iters + iters2, 600))
+            r2s = rho2_scale if iters2 > 0 else None
+            admm = prepare_admm(tmpl, alpha=alpha, dtype=dtype,
+                                device=device, tune_iters=tune_iters,
+                                rho2_scale=r2s)
+            admm, admm2 = admm if iters2 > 0 else (admm, admm)
 
-        # tube cross-section H-rep for membership checks, padded
-        Hz, hz = self.Z.A, self.Z.b
+        # tube cross-section H-rep for membership checks, padded; a setup
+        # without a tube gets one dummy row
+        if self.Z is not None:
+            Hz, hz = self.Z.A, self.Z.b
+        else:
+            Hz, hz = np.zeros((1, self.nx)), np.ones(1)
         mz = ((Hz.shape[0] + PAD_TO - 1) // PAD_TO) * PAD_TO
         Hz_p = np.zeros((mz, self.nx))
         hz_p = np.ones(mz)
@@ -114,25 +132,28 @@ class MPCSetup:
         def tensor(a):
             return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
+        Kp = (self.ancillary_gain() if self.kind.startswith("tube")
+              else self.K)
         arrays = ControllerArrays(
             admm=admm, admm2=admm2,
             A=tensor(self.A), B=tensor(self.B),
-            K_ss=tensor(self.K), K_plant=tensor(self.ancillary_gain()),
-            Hz=tensor(Hz_p), hz=tensor(hz_p))
+            K_ss=tensor(self.K), K_plant=tensor(Kp),
+            Hz=tensor(Hz_p), hz=tensor(hz_p), ric=ric)
         return arrays, _config(self.nx, self.nu, self.N, tmpl, iters, iters2,
-                               solver)
+                               solver, ip_iters)
 
 
 class ControllerArrays(NamedTuple):
     """Everything the per-step function reads, as tensors."""
-    admm: ADMMSpec             # phase-1 spec
-    admm2: ADMMSpec            # phase-2 spec (alias of admm when iters2 == 0)
+    admm: Optional[ADMMSpec]   # phase-1 spec (None under solver ip_riccati)
+    admm2: Optional[ADMMSpec]  # phase-2 spec (alias of admm when iters2 == 0)
     A: torch.Tensor            # (nx, nx) plant/nominal model
     B: torch.Tensor            # (nx, nu)
     K_ss: torch.Tensor         # (nu, nx) steady-state gain (terminal law)
     K_plant: torch.Tensor      # (nu, nx) ancillary gain
     Hz: torch.Tensor           # (mz_p, nx) tube H-rep (padded)
     hz: torch.Tensor           # (mz_p,)
+    ric: Optional[RiccatiIPSpec] = None   # structured IP (solver ip_riccati)
 
     def to(self, device) -> "ControllerArrays":
         return tree_to(self, device)
@@ -152,12 +173,14 @@ class ControllerConfig:
     u_off: int                 # offset of u_0 in the QP variable layout
     xbar_off: int              # offset of the artificial steady state xbar
     ubar_off: int              # offset of ubar
+    ip_iters: int = 25         # interior-point iteration cap (ip_riccati)
 
 
-def _config(nx, nu, N, tmpl, iters, iters2, solver) -> ControllerConfig:
+def _config(nx, nu, N, tmpl, iters, iters2, solver,
+            ip_iters) -> ControllerConfig:
     return ControllerConfig(
         nx=nx, nu=nu, N=N, n=tmpl.n, tracking=tmpl.tracking,
-        iters=iters, iters2=iters2, solver=solver,
+        iters=iters, iters2=iters2, solver=solver, ip_iters=ip_iters,
         u_off=nx * (N + 1),
         xbar_off=nx * (N + 1) + nu * N,
         ubar_off=nx * (N + 1) + nu * N + nx)
@@ -184,13 +207,22 @@ def spec_from_numpy(np_spec, dtype: torch.dtype = torch.float64,
     return ADMMSpec(**{f: leaf(f) for f in ADMMSpec._fields})
 
 
+def ric_spec_from_numpy(np_spec, dtype: torch.dtype = torch.float64,
+                        device="cpu") -> RiccatiIPSpec:
+    """The port's ``RiccatiIPSpec`` from the JAX package's, given as numpy
+    leaves (the fields are the same)."""
+    return RiccatiIPSpec(**{f: _np_tensor(getattr(np_spec, f), dtype, device)
+                            for f in RiccatiIPSpec._fields})
+
+
 def arrays_from_numpy(np_arrays, dtype: torch.dtype = torch.float64,
                       device="cpu") -> ControllerArrays:
     """The port's ``ControllerArrays`` from the JAX package's, given as
     numpy leaves (``jax.tree_util.tree_map(np.asarray, arrays)``).
 
-    Keeps ``admm``/``admm2`` (through ``spec_from_numpy``) and the model
-    matrices, and drops the interior-point fields (``ip``, ``ric``)."""
+    Keeps ``admm``/``admm2`` (through ``spec_from_numpy``), ``ric`` where
+    the JAX package built one, and the model matrices; drops the dense
+    interior point's ``ip``."""
     def tensor(a):
         return _np_tensor(a, dtype, device)
 
@@ -199,7 +231,9 @@ def arrays_from_numpy(np_arrays, dtype: torch.dtype = torch.float64,
         admm2=spec_from_numpy(np_arrays.admm2, dtype, device),
         A=tensor(np_arrays.A), B=tensor(np_arrays.B),
         K_ss=tensor(np_arrays.K_ss), K_plant=tensor(np_arrays.K_plant),
-        Hz=tensor(np_arrays.Hz), hz=tensor(np_arrays.hz))
+        Hz=tensor(np_arrays.Hz), hz=tensor(np_arrays.hz),
+        ric=(None if np_arrays.ric is None
+             else ric_spec_from_numpy(np_arrays.ric, dtype, device)))
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +293,25 @@ def _tube_common(A, B, Q, R, W, X, U, eps_var, rpi_method, K_ancillary):
                        eps_var=eps_var, rpi_method=rpi_method)
     Xc, Uc = tighten_constraints(X, U, Z, K_anc)
     return K, P, Acl, K_anc, Z, Xc, Uc
+
+
+def setup_tracking(A, B, Q, R, N, X: Polytope, U: Polytope,
+                   lambda_param: float = 0.99999) -> MPCSetup:
+    """TrackingMPC (Limon 2008 / Pezzutto 2022, ``TrackingMPC.py``):
+    artificial steady state, Lyapunov terminal cost, Gilbert-Tan augmented
+    terminal set, fixed initial state; no tube."""
+    A, B = np.asarray(A, float), np.asarray(B, float)
+    Q, R = np.asarray(Q, float), np.atleast_2d(np.asarray(R, float))
+    K, P, Acl = _lqr_terminal(A, B, Q, R)
+    Tout = 10 * P
+    Xf = _augmented_terminal_set(Acl, A, B, K, X, U, lambda_param)
+    tmpl = build_mpc_qp(
+        A, B, Q, R, N, tracking=True, P_term=P, Tout=Tout,
+        Hx=X.A, hx=X.b, Hu=U.A, hu=U.b,
+        HxN=Xf.A, hxN=Xf.b, terminal_augmented=True, init_mode="fixed")
+    return MPCSetup(kind="tracking", A=A, B=B, Q=Q, R=R, N=int(N), K=K, P=P,
+                    Tout=Tout, X=X, U=U, Xf=Xf, template=tmpl,
+                    fixed_initial_state=True, lambda_param=lambda_param)
 
 
 def setup_tube_tracking(A, B, Q, R, N, X: Polytope, U: Polytope, W: Polytope,

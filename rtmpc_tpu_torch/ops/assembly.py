@@ -45,6 +45,9 @@ class QPTemplate:
     # row counts per group, in build_mpc_qp's emission order
     # [dynamics | init | ss | state | input | terminal]
     row_meta: Optional[dict] = None
+    # reduced -> full map of a condensed template; None: the port builds
+    # only full-layout (uncondensed) templates
+    S: Optional[np.ndarray] = None
 
     @property
     def n(self) -> int:
@@ -53,6 +56,28 @@ class QPTemplate:
     @property
     def m(self) -> int:
         return self.A.shape[0]
+
+    # -- variable index helpers -------------------------------------------
+    def x_slice(self, i: int) -> slice:
+        return slice(i * self.nx, (i + 1) * self.nx)
+
+    def u_slice(self, j: int) -> slice:
+        off = self.nx * (self.N + 1)
+        return slice(off + j * self.nu, off + (j + 1) * self.nu)
+
+    @property
+    def xbar_slice(self) -> Optional[slice]:
+        if not self.tracking:
+            return None
+        off = self.nx * (self.N + 1) + self.nu * self.N
+        return slice(off, off + self.nx)
+
+    @property
+    def ubar_slice(self) -> Optional[slice]:
+        if not self.tracking:
+            return None
+        off = self.nx * (self.N + 1) + self.nu * self.N + self.nx
+        return slice(off, off + self.nu)
 
 
 def build_mpc_qp(

@@ -11,14 +11,16 @@ On the device, ``admm_solve`` runs the three-matmul iteration of
 The fused composite form lives in ``ops/qp_cuda.py`` (the CUDA kernel and
 its plain PyTorch version).
 
-Not ported yet: the active-set polish, the residual-based early exit and
-the infeasibility certificates.  Asking for the first two raises
-``NotImplementedError``.
+``infeasibility_certificates`` is the JAX package's OSQP-style primal and
+dual infeasibility test, batched.
+
+Not ported yet: the active-set polish and the residual-based early exit;
+asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,7 +30,8 @@ from .assembly import QPTemplate
 from .precision import DEFAULT_DTYPE
 
 __all__ = ["ADMMSpec", "ADMMState", "ADMMSolution", "prepare_admm",
-           "init_admm_state", "admm_solve", "problem_vectors"]
+           "init_admm_state", "admm_solve", "problem_vectors",
+           "infeasibility_certificates"]
 
 # The JAX package's prepare_admm defaults, which every caller of the
 # flagship keeps.
@@ -312,3 +315,67 @@ def admm_solve(spec: ADMMSpec, theta: torch.Tensor,
     r_dual = (x @ spec.Ps.T + q + y @ spec.As).abs().amax(dim=1)
     return ADMMSolution(z_primal=spec.D * x, state=ADMMState(x, y, z),
                         r_prim=r_prim, r_dual=r_dual)
+
+
+# The JAX package's certificate defaults, which every caller keeps.
+CERT_EPS = 1e-3         # primal and dual infeasibility tolerance
+CERT_ITERS = 25         # extra iterations whose averaged deltas are tested
+CERT_BIG = 1e19         # a bound at or above this counts as infinite
+
+
+def infeasibility_certificates(spec: ADMMSpec, theta: torch.Tensor,
+                               state: ADMMState,
+                               solve: Callable = admm_solve):
+    """OSQP primal/dual infeasibility certificates from the ADMM deltas
+    (``rtmpc_tpu/ops/qp.py:infeasibility_certificates``), batched.
+
+    Runs ``CERT_ITERS = k`` more iterations from ``state`` as one ADMM
+    phase through ``solve`` (``admm_solve``, or ``admm_solve_cuda``: one
+    kernel launch on the card) and tests the averaged deltas
+    ``(state_{+k} - state) / k``
+    in the scaled space:
+
+    * primal infeasible (a dy ray certifying an empty feasible set):
+      ``|A' dy| <= eps |dy|``, ``u' max(dy, 0) + l' min(dy, 0) <= -eps
+      |dy|``, and dy has no component against an infinite bound;
+    * dual infeasible (a dx ray of an unbounded objective):
+      ``|P dx| <= eps |dx|``, ``q' dx <= -eps |dx|``, and ``A dx`` within
+      the recession cone of ``[l, u]``.
+
+    ``theta (B, ntheta)``; returns ``(prim_infeas, dual_infeas)``, each
+    ``(B,)`` bool."""
+    theta = theta.to(spec.q0.dtype)
+    q, l, u = problem_vectors(spec, theta)
+    x, y = state.x, state.y
+    eps_pinf = eps_dinf = CERT_EPS
+    big = CERT_BIG
+    new = solve(spec, theta, state, iters=CERT_ITERS).state
+    dx = (new.x - x) / float(CERT_ITERS)
+    dy = (new.y - y) / float(CERT_ITERS)
+    dy_norm = dy.abs().amax(1)
+    dx_norm = dx.abs().amax(1)
+    tiny = 1e-30
+
+    # primal-infeasibility test on dy; infinite bounds are masked, not
+    # multiplied (inf * 0)
+    fin_u = torch.isfinite(u) & (u.abs() < big)
+    fin_l = torch.isfinite(l) & (l.abs() < big)
+    Atdy = (dy @ spec.As).abs().amax(1)
+    dy_pos, dy_neg = dy.clamp_min(0.0), dy.clamp_max(0.0)
+    sup = (torch.where(fin_u, u, 0.0) * dy_pos
+           + torch.where(fin_l, l, 0.0) * dy_neg).sum(1)
+    ray_tol = eps_pinf * dy_norm.clamp_min(tiny)
+    ok_ray = ((torch.where(fin_u, 0.0, dy_pos).abs().amax(1) <= ray_tol)
+              & (torch.where(fin_l, 0.0, dy_neg).abs().amax(1) <= ray_tol))
+    prim_infeas = ((dy_norm > tiny) & (Atdy <= eps_pinf * dy_norm)
+                   & (sup <= -eps_pinf * dy_norm) & ok_ray)
+
+    # dual-infeasibility test on dx
+    Pdx = (dx @ spec.Ps.T).abs().amax(1)
+    qdx = (q * dx).sum(1)
+    Adx = dx @ spec.As.T
+    cone_ok = (torch.where(fin_u & fin_l, Adx, 0.0).abs().amax(1)
+               <= eps_dinf * dx_norm.clamp_min(tiny))
+    dual_infeas = ((dx_norm > tiny) & (Pdx <= eps_dinf * dx_norm)
+                   & (qdx <= -eps_dinf * dx_norm) & cone_ok)
+    return prim_infeas, dual_infeas

@@ -2,10 +2,14 @@
 
 ``admm_solve_cuda`` runs a whole fixed-count ADMM phase for a batch in one
 launch of the hand-written kernel ``csrc/admm_kernel.cu`` (the port of the
-Pallas kernel ``_admm_kernel``).  On CPU tensors it runs
-``_admm_solve_cuda_plain``, the same composite-form iteration in batched
-``torch.matmul``; the CPU tests hold that plain version against the JAX
-package, and ``chip_smoke.py`` holds the kernel against it on the card.
+Pallas kernel ``_admm_kernel``).  The kernel has two paths, picked by the
+width ``n_p + m_p`` of the composites: up to 192 columns [Gxc; Gsc] sits
+in shared memory (``admm_kernel``, the flagship's 40 + 112), up to 2048 it
+is read from L2 (``admm_kernel_l2``, the cartpole's 112 + 792 and
+112 + 840).  On CPU tensors it runs ``_admm_solve_cuda_plain``, the same
+composite-form iteration in batched ``torch.matmul``; the CPU tests hold
+that plain version against the JAX package, and ``chip_smoke.py`` holds
+the kernel against it on the card.
 
 The kernel is built from the source in this checkout at first use, with
 ``nvcc`` for ``sm_90a``, into ``build/rtmpc_tpu_torch/`` next to the
@@ -13,7 +17,8 @@ package; the library's file name carries a hash of the source and flags,
 so an edited source is rebuilt.  It is bound with ``ctypes`` (plain C
 interface, no PyTorch headers), launched on PyTorch's current stream, and
 never synchronised here.  ``admm_solve_cuda.launches`` counts kernel
-launches.
+launches, and ``admm_solve_cuda.launches_by_path`` counts them per path
+(``"smem"``, ``"l2"``).
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import torch
 from .qp import (ADMMSolution, ADMMSpec, ADMMState, init_admm_state,
                  problem_vectors)
 
-__all__ = ["admm_solve_cuda", "build_kernel"]
+__all__ = ["admm_solve_cuda", "build_kernel", "kernel_path"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "csrc", "admm_kernel.cu")
@@ -41,7 +46,9 @@ _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _CUDA_HOME_DEFAULT = "/usr/local/cuda"
-_MAX_COLS = 192          # kMaxThreads in the kernel: n_p + m_p <= 192
+# n_p + m_p limits of the kernel's two paths (kMaxThreads and
+# kThreadsL * kMaxColsL in the source)
+_PATH_LIMITS = (("smem", 192), ("l2", 2048))
 
 
 def _find_nvcc() -> str:
@@ -102,6 +109,16 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def kernel_path(n_cols: int) -> str:
+    """The kernel path that takes composites ``n_cols = n_p + m_p`` wide;
+    raises ``ValueError`` if none does."""
+    for path, limit in _PATH_LIMITS:
+        if n_cols <= limit:
+            return path
+    raise ValueError(f"admm_solve_cuda: n_p + m_p = {n_cols} exceeds the "
+                     f"kernel's {_PATH_LIMITS[-1][1]} columns")
+
+
 def _admm_solve_cuda_plain(spec: ADMMSpec, theta: torch.Tensor,
                            state: Optional[ADMMState] = None,
                            iters: int = 100) -> ADMMSolution:
@@ -158,9 +175,7 @@ def admm_solve_cuda(spec: ADMMSpec, theta: torch.Tensor,
     if theta.dim() != 2:
         raise ValueError("admm_solve_cuda: theta must be (B, ntheta)")
     B, nt = theta.shape
-    if nm > _MAX_COLS:
-        raise ValueError(f"admm_solve_cuda: n_p + m_p = {nm} exceeds the "
-                         f"kernel's {_MAX_COLS} columns")
+    path = kernel_path(nm)
     if iters < 0:
         raise ValueError("admm_solve_cuda: iters must be >= 0")
     if state is None:
@@ -196,8 +211,10 @@ def admm_solve_cuda(spec: ADMMSpec, theta: torch.Tensor,
             raise RuntimeError(f"admm_solve_cuda: kernel launch failed with "
                                f"CUDA error {rc}")
         admm_solve_cuda.launches += 1
+        admm_solve_cuda.launches_by_path[path] += 1
     return ADMMSolution(z_primal=x_o * spec.D, state=ADMMState(x_o, y_o, z_o),
                         r_prim=rp, r_dual=rd)
 
 
 admm_solve_cuda.launches = 0
+admm_solve_cuda.launches_by_path = {path: 0 for path, _ in _PATH_LIMITS}

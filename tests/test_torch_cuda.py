@@ -116,3 +116,97 @@ def test_step_profile_reads_the_kernel(flagship_cuda):
     assert 0 < res["k1_share_of_device_time"] <= 1
     assert 0 < res["busy_share_profiled"] <= 1.05
     assert res["other_device_ops_per_step"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The Fig. 3a slice: the kernel's L2 path at the cartpole's shapes and the
+# structured interior point on the card
+# ---------------------------------------------------------------------------
+
+# float32 kernel vs plain version, the bars of chip_smoke.py phase 8 (5-10x
+# the z 2.09e-4 / y 2.72e-3 read on an NVIDIA H100 80GB HBM3 at 700 W)
+CP_Z_ATOL, CP_Y_ATOL = 1.5e-3, 2e-2
+IP_OBJ_RTOL = 1e-8                     # card vs CPU, float64
+
+
+@pytest.fixture(scope="module")
+def cartpole():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the ADMM kernel has no CPU mode")
+    from rtmpc_tpu_torch.apps.scenarios import cartpole_scenario
+    from rtmpc_tpu_torch.models import setup_tracking, setup_tube_tracking
+    sc = cartpole_scenario()
+    return sc, {
+        "tube": setup_tube_tracking(sc.A, sc.B, sc.Q, sc.R, sc.N, sc.X, sc.U,
+                                    sc.W, fixed_initial_state=True,
+                                    rpi_method=1),
+        "track": setup_tracking(sc.A, sc.B, sc.Q, sc.R, sc.N, sc.X, sc.U)}
+
+
+def _cartpole_theta(B, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    theta = np.zeros((B, 8))
+    theta[:, :4] = rng.uniform(-1, 1, (B, 4)) * np.array([0.3, 0.5, 0.05,
+                                                           0.5])
+    theta[:, 4] = rng.uniform(-1.0, 6.0, B)
+    return torch.tensor(theta, dtype=dtype, device="cuda")
+
+
+@pytest.mark.parametrize("B", [37, 200])
+@pytest.mark.parametrize("arm", ["tube", "track"])
+def test_l2_path_matches_plain_version(cartpole, arm, B):
+    """The large-composite path (112 + 792 and 112 + 840 columns): 200
+    cold iterations at phase 1, then 200 warm at phase 2."""
+    from rtmpc_tpu_torch.apps.common import ADMM_SCHEDULE
+    arrays, _ = cartpole[1][arm].to_device(torch.float32, "cuda",
+                                           solver="cuda", **ADMM_SCHEDULE)
+    th = _cartpole_theta(B, 0)
+    before = dict(admm_solve_cuda.launches_by_path)
+    k1 = admm_solve_cuda(arrays.admm, th, None, 200)
+    p1 = _admm_solve_cuda_plain(arrays.admm, th, None, 200)
+    k2 = admm_solve_cuda(arrays.admm2, th, p1.state, 200)
+    p2 = _admm_solve_cuda_plain(arrays.admm2, th, p1.state, 200)
+    torch.cuda.synchronize()
+    assert admm_solve_cuda.launches_by_path["l2"] == before["l2"] + 2
+    for k, p in ((k1, p1), (k2, p2)):
+        torch.testing.assert_close(k.z_primal, p.z_primal, rtol=0,
+                                   atol=CP_Z_ATOL)
+        torch.testing.assert_close(k.state.y, p.state.y, rtol=0,
+                                   atol=CP_Y_ATOL)
+        assert bool(torch.isfinite(k.r_prim).all())
+
+
+def test_kernel_refuses_too_wide_qps(flagship_cuda):
+    from rtmpc_tpu_torch.ops.qp_cuda import kernel_path
+    with pytest.raises(ValueError, match="2048"):
+        kernel_path(4096)
+
+
+@pytest.mark.parametrize("arm", ["tube", "track"])
+def test_ip_riccati_card_matches_cpu(cartpole, arm):
+    """float64 on the card against float64 on the CPU: residuals at the
+    solver's stop level on both, objectives within 1e-8 relative."""
+    from rtmpc_tpu_torch.ops.ip_riccati import ip_riccati_solve
+    sc, setups = cartpole
+    rng = np.random.default_rng(1)
+    theta = np.zeros((16, 8))
+    theta[:, :4] = rng.uniform(-1, 1, (16, 4)) * np.array([0.05, 0.1, 0.01,
+                                                           0.1])
+    theta[:, 4] = 0.5
+    sols = {}
+    for dev in ("cuda", "cpu"):
+        arrays, cfg = setups[arm].to_device(torch.float64, dev,
+                                            solver="ip_riccati", ip_iters=30)
+        sols[dev] = ip_riccati_solve(
+            arrays.ric, torch.tensor(theta, device=dev), cfg.N, iters=30)
+    tmpl = setups[arm].template
+    q = theta @ tmpl.Mq.T + tmpl.q0
+    obj = {}
+    for dev, sol in sols.items():
+        z = sol.z_primal.cpu().numpy()
+        assert float(sol.r_prim.max()) <= 1e-9
+        assert float(sol.r_dual.max()) <= 1e-6
+        obj[dev] = 0.5 * np.einsum("bi,ij,bj->b", z, tmpl.P, z) \
+            + (q * z).sum(1)
+    assert (np.abs(obj["cuda"] - obj["cpu"])
+            <= IP_OBJ_RTOL * np.abs(obj["cpu"])).all()

@@ -43,6 +43,24 @@ _ROLLOUT = _BLOCK_JAX + textwrap.dedent("""
             x0, refs, w, theta, gamma)
         assert outs.x.shape == (2, 3, 2)
         assert bool(carry.feasible.all()) and bool(torch.isfinite(outs.x).all())
+
+    # the Fig. 3a slice: interior point, certificates, sweep, app
+    import numpy as np
+    from rtmpc_tpu_torch.apps import results_linear  # noqa: F401
+    from rtmpc_tpu_torch.apps.scenarios import cartpole_scenario
+    from rtmpc_tpu_torch.models import setup_tracking
+    from rtmpc_tpu_torch.ops import (infeasibility_certificates,  # noqa: F401
+                                     ip_riccati_solve)
+    from rtmpc_tpu_torch.parallel import run_mc_sweep  # noqa: F401
+    from rtmpc_tpu.utils.polytope import box
+    st = setup_tracking([[1.0, 1.0], [0.0, 1.0]], [[0.0], [1.0]], np.eye(2),
+                        [[0.1]], 5, box(np.array([8.0, 8.0])),
+                        box(np.array([1.0])))
+    arrays, cfg = st.to_device(torch.float64, "cpu", solver="ip_riccati")
+    sol = ip_riccati_solve(arrays.ric, torch.tensor([[1.0, 0.0, 3.0, 0.0]]),
+                           cfg.N)
+    assert float(sol.r_prim) < 1e-9
+    assert cartpole_scenario().N == 20
     try:
         import jax  # noqa: F401
     except ImportError:

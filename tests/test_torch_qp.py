@@ -29,6 +29,17 @@ from rtmpc_tpu_torch.models import arrays_from_numpy
 from rtmpc_tpu_torch.ops.qp import ADMMState, admm_solve
 from rtmpc_tpu_torch.ops.qp_cuda import _admm_solve_cuda_plain, admm_solve_cuda
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the batches here are small, and the test
+    workers that run in parallel then do not compete for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KW = dict(iters=60, iters2=60, alpha=1.8, rho2_scale=0.2)
 TOL64 = 1e-10
 
@@ -188,3 +199,41 @@ def test_unported_options_raise(specs64, option):
     with pytest.raises(NotImplementedError):
         admm_solve(pa.admm, torch.zeros(2, 4, dtype=torch.float64), None,
                    iters=5, **option)
+
+
+def test_kernel_plain_version_matches_pallas_cartpole_shape():
+    """The large-composite regime: the cartpole tube QP (n_p + m_p = 112 +
+    792, the kernel's L2 path), float32, 20 iterations, B=9, against the
+    Pallas kernel in interpret mode: z 1e-4 (measured 2.4e-5: float32 sums
+    of 904 terms in two orders), y 2e-3."""
+    from rtmpc_tpu.apps.scenarios import cartpole_scenario
+    from rtmpc_tpu.ops.qp import prepare_admm as jax_prepare_admm
+    from rtmpc_tpu_torch.models import spec_from_numpy
+    from rtmpc_tpu_torch.ops.qp_cuda import kernel_path
+    sc = cartpole_scenario()
+    st = setup_tube_tracking(sc.A, sc.B, sc.Q, sc.R, sc.N, sc.X, sc.U, sc.W,
+                             fixed_initial_state=True, rpi_method=1)
+    jspec = jax_prepare_admm(st.template, dtype=jnp.float32, alpha=1.8)
+    pspec = spec_from_numpy(jax.tree_util.tree_map(np.asarray, jspec),
+                            torch.float32)
+    n_cols = pspec.Kinv.shape[0] + pspec.As.shape[0]
+    assert n_cols == 904 and kernel_path(n_cols) == "l2"
+    rng = np.random.default_rng(4)
+    theta = np.zeros((9, 8), np.float32)
+    theta[:, :4] = rng.uniform(-0.2, 0.2, (9, 4))
+    theta[:, 4] = rng.uniform(-1.0, 6.0, 9)
+    want = admm_solve_pallas(jspec, jnp.asarray(theta), iters=20, block_b=8,
+                             interpret=True)
+    got = _admm_solve_cuda_plain(pspec, torch.tensor(theta), None, 20)
+    np.testing.assert_allclose(got.z_primal.numpy(),
+                               np.asarray(want.z_primal), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got.state.y.numpy(), np.asarray(want.state.y),
+                               rtol=0, atol=2e-3)
+
+
+def test_kernel_path_limits():
+    from rtmpc_tpu_torch.ops.qp_cuda import kernel_path
+    assert kernel_path(152) == "smem" and kernel_path(192) == "smem"
+    assert kernel_path(193) == "l2" and kernel_path(2048) == "l2"
+    with pytest.raises(ValueError, match="2048"):
+        kernel_path(2049)
