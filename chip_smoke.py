@@ -17,8 +17,13 @@ fail loudly (non-zero exit) on any error:
      phase 1 then warm phase 2, in f32, and against the plain version in
      f64 (no further from it than the plain f32 version): at B=4099
      (ragged tail) and at the main path's B=16384 (phase 2 from the
-     kernel's own phase-1 state); times of kernel and plain version for
-     one 60-iteration phase at B=16384;
+     kernel's own phase-1 state), and at B=1 and one row less and more
+     than a thread block owns (there against absolute float64 bars, see
+     ``rtmpc_tpu_torch/ops/kernel_bench.py``); times of kernel and plain
+     version for one 60-iteration phase at B=16384;
+ 5b. the kernel against its plain version on random QPs at the widest
+     shape of each path and the narrowest of the large one (n_p + m_p =
+     192, 193, 2048), at tiny and ragged batches;
   6. the full-width closed loop through the kernel: B=16384 rollouts of
      T=120 steps, 70%/70% loss, the bench's reference profile; every
      rollout feasible, every output finite, 2 kernel launches per step,
@@ -29,13 +34,19 @@ fail loudly (non-zero exit) on any error:
 Then the paper's Fig. 3a slice, the 4-D cartpole (N=20) of
 ``rtmpc_tpu_torch.apps.results_linear``:
 
-  8. the kernel's large-composite path (``admm_kernel_l2``) at the
+  8. the kernel's large-composite path (``admm_kernel_cluster``) at the
      cartpole's shapes, both QPs (112 + 792 and 112 + 840 columns), at
-     B=200 (phase 2 warm from the kernel's own phase-1 state) and B=37
-     (ragged), 200 cold then 200 warm iterations: against its plain
+     B=200 (phase 2 warm from the kernel's own phase-1 state), B=37
+     (ragged), B=1 and one row less and more than a cluster owns, 200
+     cold then 200 warm iterations: against its plain
      version in float32, and against the plain version in float64 no
-     further than ``F64_RATIO`` times plain float32; times of kernel and
-     plain version for one 200-iteration phase at B=200;
+     further than 3x plain float32 (absolute bars at the small batches);
+     times of kernel and
+     plain version for one 200-iteration phase at B=200, and for all
+     three main shapes the kernel's time beside its FP32 bound (the
+     factored form's operations, the least the function needs) and the
+     library's time for the products alone (``iters`` back-to-back
+     ``torch.mm`` in float32, TF32 off);
   9. (run after 10, whose trajectories give its inputs) the structured
      interior point in float64 on the card against the CPU, on 64 thetas
      from the sweep's sample trajectories;
@@ -60,26 +71,22 @@ import dataclasses
 import importlib.abc
 import json
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-B_CHECK = 4099          # kernel vs plain: 256 tiles of 16 and a tail of 3
+B_CHECK = 4099          # kernel vs plain: 64 blocks of 64 rows and a tail of 3
 B_FULL = 16384          # the bench's batch
 B_PARITY = 256
 T = 120
 ITERS = ITERS2 = 60
 ALPHA, RHO2_SCALE = 1.8, 0.2
 P_LOSS = 0.7
-# Kernel vs plain version, both float32 (cuBLAS and the kernel sum in other
-# orders): the bars of tests/test_qp_pallas.py.
-Z_ATOL, Y_ATOL = 1e-4, 2e-3
-# Against the plain version in float64, the kernel's error may be at most
-# this multiple of the plain float32 version's own error.
-F64_RATIO = 3.0
+# The bars of the kernel against its plain version are those of
+# rtmpc_tpu_torch/ops/kernel_bench.py (one comparison, compare_with_plain,
+# for this script, the kernel's own bench and the card tests).
 TUBE_TOL = 1e-4
 # Closed-loop max |dx|: 6-9x what an NVIDIA H100 80GB HBM3 at 700 W read
 # (1.7e-4 against solver "admm" on the card, 1.1e-4 against the float64
@@ -89,11 +96,6 @@ DX_PARITY = 1e-3
 # Phase 8, the cartpole QPs through the kernel's L2 path.
 CP_BATCHES = (200, 37)
 CP_ITERS = 200
-# Float32 kernel vs plain version: 5-10x what an NVIDIA H100 80GB HBM3 at
-# 700 W read (z 2.09e-4, y 2.72e-3: 904- and 952-term sums in two orders,
-# scaled into y by rho = 500 on the equality rows).  Against float64 the
-# kernel was no further than plain float32 (F64_RATIO holds).
-CP_Z_ATOL, CP_Y_ATOL = 1.5e-3, 2e-2
 # Phase 9, the interior point on the card against the CPU, both float64.
 # The cartpole's optimal face is flat (scaled cost cond ~1e20): summing in
 # other orders moves the converged z along it at equal objectives.  Read on
@@ -107,10 +109,12 @@ IP_R_DUAL = 1e-5        # and their dual residuals
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
-    """Makes any import of jax fail: the port must run without it."""
+    """Makes any import of jax or of the JAX package ``rtmpc_tpu`` fail:
+    the port must run without them."""
 
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+        if (name in ("jax", "rtmpc_tpu")
+                or name.startswith(("jax.", "jaxlib", "rtmpc_tpu."))):
             raise ImportError(f"chip_smoke.py: {name} must not be imported")
         return None
 
@@ -121,35 +125,8 @@ def _require(ok, what="") -> None:
         raise RuntimeError(f"chip_smoke.py check failed: {what!r}")
 
 
-def _card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
-def _time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA
-    events, after one warm-up call)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def _max_err(a, b) -> float:
     return (a.double().cpu() - b.double().cpu()).abs().max().item()
-
-
-def _double(state):
-    return type(state)(*(t.double() for t in state))
 
 
 def _bench_refs(B, dev, dtype):
@@ -168,68 +145,76 @@ def _inputs(B, dev, seed):
     return theta, gamma, w
 
 
-def _compare(arrays, arrays64, th1, th2, warm_from_kernel,
-             iters=(ITERS, ITERS2), bars=(Z_ATOL, Y_ATOL), label=""):
-    """Cold phase 1 at ``admm``, then warm phase 2 at ``admm2`` from one
-    shared state (the kernel's phase-1 iterate, as on the main path, or the
-    plain version's): the kernel against its plain version in float32 and
-    both against the plain version in float64."""
-    from rtmpc_tpu_torch.ops.qp_cuda import (_admm_solve_cuda_plain,
-                                             admm_solve_cuda)
-    it1, it2 = iters
-    k1 = admm_solve_cuda(arrays.admm, th1, None, it1)
-    p1 = _admm_solve_cuda_plain(arrays.admm, th1, None, it1)
-    start = k1.state if warm_from_kernel else p1.state
-    k2 = admm_solve_cuda(arrays.admm2, th2, start, it2)
-    p2 = _admm_solve_cuda_plain(arrays.admm2, th2, start, it2)
-    d1 = _admm_solve_cuda_plain(arrays64.admm, th1.double(), None, it1)
-    d2 = _admm_solve_cuda_plain(arrays64.admm2, th2.double(),
-                                _double(start), it2)
-    torch.cuda.synchronize()
-    errs = {}
-    for phase, k, p, d in (("cold", k1, p1, d1), ("warm", k2, p2, d2)):
-        errs[phase + "_z"] = _max_err(k.z_primal, p.z_primal)
-        errs[phase + "_y"] = _max_err(k.state.y, p.state.y)
-        errs[phase + "_rprim"] = _max_err(k.r_prim, p.r_prim)
-        errs[phase + "_rdual"] = _max_err(k.r_dual, p.r_dual)
-        for which, got in (("f64_", k), ("plain_f64_", p)):
-            errs[which + phase + "_z"] = _max_err(got.z_primal, d.z_primal)
-            errs[which + phase + "_y"] = _max_err(got.state.y, d.state.y)
-        for t in (*k.state, k.r_prim, k.r_dual):
-            _require(bool(torch.isfinite(t).all()), phase)
+def _compare(arrays, arrays64, th1, th2, warm_from_kernel, iters, bars,
+             label="", f64_bars=None):
+    """``kernel_bench.compare_with_plain`` on a controller's two phases
+    (``admm``, then ``admm2`` warm), held against float64 too; prints the
+    errors and returns the largest of z and y against the plain version."""
+    from rtmpc_tpu_torch.ops.kernel_bench import compare_with_plain
+    errs = compare_with_plain(
+        arrays.admm, arrays.admm2, th1, th2, iters, bars,
+        warm_from_kernel=warm_from_kernel,
+        specs64=(arrays64.admm, arrays64.admm2), f64_bars=f64_bars)
     print("%skernel vs plain (B=%d, %d+%d iterations, phase 2 warm from the "
           "%s phase-1 state): %s"
-          % (label + " " if label else "", th1.shape[0], it1, it2,
+          % (label + " " if label else "", th1.shape[0], *iters,
              "kernel's" if warm_from_kernel else "plain version's",
              json.dumps(errs)))
-    z_bar, y_bar = bars
-    bars = {"cold_z": z_bar, "warm_z": z_bar, "cold_y": y_bar,
-            "warm_y": y_bar}
-    for key, bar in bars.items():
-        _require(errs[key] <= bar, (th1.shape[0], key, errs[key], bar))
-        f64, plain64 = errs["f64_" + key], errs["plain_f64_" + key]
-        _require(f64 <= F64_RATIO * plain64 + 1e-6,
-                 (th1.shape[0], key, f64, plain64))
-    return max(errs[key] for key in bars)
+    return max(errs[k] for k in ("cold_z", "warm_z", "cold_y", "warm_y"))
+
+
+def _product_yardstick(label, B, spec, th, iters, kernel_ms, dev):
+    """Prints the kernel's time for one phase beside its FP32 bound, the
+    library's time for the products alone and the SM clock under the
+    kernel; returns (bound ms, bound by, product ms)."""
+    from rtmpc_tpu_torch.ops.kernel_bench import (composite_over_factored,
+                                                  mm_product_ms, roofline_ms,
+                                                  sm_clock_under)
+    from rtmpc_tpu_torch.ops.qp_cuda import admm_solve_cuda
+    n_p, m_p = spec.Kinv.shape[0], spec.As.shape[0]
+    bound, by = roofline_ms(B, n_p, m_p, th.shape[1], iters)
+    mm = mm_product_ms(B, n_p + m_p, iters, dev)
+    # about two seconds of queued launches, read while they run
+    clock = sm_clock_under(lambda: admm_solve_cuda(spec, th, None, iters),
+                           int(2000 / kernel_ms))
+    print("%s, B=%d, %d iterations: kernel %.4f ms; bound %.4f ms (by %s, "
+          "the factored form's; the kernel's composite product is %.2fx "
+          "those operations; share reached %.3f); library, products alone "
+          "(%d x torch.mm (%d, %d) @ (%d, %d), float32, TF32 off): %.4f ms; "
+          "SM clock under the kernel, and its maximum: %s"
+          % (label, B, iters, kernel_ms, bound, by,
+             composite_over_factored(n_p, m_p), bound / kernel_ms, iters,
+             B, n_p + m_p, n_p + m_p, n_p + m_p, mm, clock))
+    return bound, by, mm
 
 
 def phase_kernel_vs_plain(arrays, arrays64, dev):
+    from rtmpc_tpu_torch.ops.kernel_bench import (F64_SMALL_B, Y_ATOL,
+                                                  Y_ATOL_SMALL_B, Z_ATOL)
+    from rtmpc_tpu_torch.ops.kernel_bench import time_ms as _time_ms
     from rtmpc_tpu_torch.ops.qp_cuda import (_admm_solve_cuda_plain,
-                                             admm_solve_cuda)
+                                             admm_solve_cuda, kernel_rows)
     rng = np.random.default_rng(0)
+    iters, bars = (ITERS, ITERS2), (Z_ATOL, Y_ATOL)
 
     def theta(B):
         return torch.tensor(rng.uniform(-2, 2, (B, 4)), dtype=torch.float32,
                             device=dev)
 
     # a ragged tail, with different thetas in the two phases
-    err = _compare(arrays, arrays64, theta(B_CHECK), theta(B_CHECK),
-                   warm_from_kernel=False)
+    err = _compare(arrays, arrays64, theta(B_CHECK), theta(B_CHECK), False,
+                   iters, bars)
     # the main path's shape: one theta for both phases, phase 2 from the
     # kernel's own phase-1 state
     thf = theta(B_FULL)
-    err = max(err, _compare(arrays, arrays64, thf, thf,
-                            warm_from_kernel=True))
+    err = max(err, _compare(arrays, arrays64, thf, thf, True, iters, bars))
+    # tiny and ragged around the rows of a thread block: the small batches'
+    # own y bar and absolute bars against float64 (kernel_bench.py)
+    rows = kernel_rows(arrays.admm.Kinv.shape[0], arrays.admm.As.shape[0])
+    for B in (1, rows - 1, rows + 1):
+        err = max(err, _compare(arrays, arrays64, theta(B), theta(B), False,
+                                iters, (Z_ATOL, Y_ATOL_SMALL_B),
+                                f64_bars=F64_SMALL_B))
 
     # one 60-iteration phase at the bench's batch, in turns
     times = {"plain": [], "kernel": []}
@@ -239,7 +224,10 @@ def phase_kernel_vs_plain(arrays, arrays64, dev):
             lambda: fn(arrays.admm, thf, None, ITERS), reps=20))
     print("one phase, B=%d, 60 iterations: kernel %s ms, plain %s ms"
           % (B_FULL, times["kernel"], times["plain"]))
-    return err, float(np.mean(times["kernel"])), float(np.mean(times["plain"]))
+    ms = float(np.mean(times["kernel"]))
+    bound = _product_yardstick("flagship 40+112", B_FULL, arrays.admm, thf,
+                               ITERS, ms, dev)
+    return err, ms, float(np.mean(times["plain"])), bound
 
 
 def phase_full_loop(arrays, cfg, dev):
@@ -339,11 +327,15 @@ def phase_cartpole_kernel(sc, setups, dev):
     shapes; returns (max error, kernel ms, plain ms) of the tracking QP's
     timed phase (the wider of the two)."""
     from rtmpc_tpu_torch.apps.common import ADMM_SCHEDULE
+    from rtmpc_tpu_torch.ops.kernel_bench import (CP_F64_SMALL_B, CP_Y_ATOL,
+                                                  CP_Z_ATOL)
+    from rtmpc_tpu_torch.ops.kernel_bench import time_ms as _time_ms
     from rtmpc_tpu_torch.ops.qp_cuda import (_admm_solve_cuda_plain,
-                                             admm_solve_cuda, kernel_path)
+                                             admm_solve_cuda, kernel_path,
+                                             kernel_rows)
     kw = dict(ADMM_SCHEDULE, solver="cuda")
     rng = np.random.default_rng(8)
-    err, times = 0.0, {}
+    err, times, bounds = 0.0, {}, {}
     for arm, setup in setups.items():
         arrays, _ = setup.to_device(torch.float32, dev, **kw)
         arrays64, _ = setup.to_device(torch.float64, dev, **kw)
@@ -351,12 +343,14 @@ def phase_cartpole_kernel(sc, setups, dev):
         print("%s QP: n_p + m_p = %d (%s path)"
               % (arm, n_cols, kernel_path(n_cols)))
         _require(kernel_path(n_cols) == "l2", (arm, n_cols))
-        for B in CP_BATCHES:
+        rows = kernel_rows(arrays.admm.Kinv.shape[0],
+                           arrays.admm.As.shape[0])
+        for B in CP_BATCHES + (1, rows - 1, rows + 1):
             th = _cartpole_thetas(sc, B, rng, dev, torch.float32)
             err = max(err, _compare(
-                arrays, arrays64, th, th, warm_from_kernel=B == 200,
-                iters=(CP_ITERS, CP_ITERS), bars=(CP_Z_ATOL, CP_Y_ATOL),
-                label=arm))
+                arrays, arrays64, th, th, B == 200, (CP_ITERS, CP_ITERS),
+                (CP_Z_ATOL, CP_Y_ATOL), label=arm,
+                f64_bars=None if B in CP_BATCHES else CP_F64_SMALL_B))
         th = _cartpole_thetas(sc, 200, rng, dev, torch.float32)
         t = {"plain": [], "kernel": []}
         for which in ("plain", "kernel", "kernel", "plain"):
@@ -367,7 +361,11 @@ def phase_cartpole_kernel(sc, setups, dev):
         print("%s QP, one %d-iteration phase, B=200: kernel %s ms, plain "
               "%s ms" % (arm, CP_ITERS, t["kernel"], t["plain"]))
         times[arm] = (float(np.mean(t["kernel"])), float(np.mean(t["plain"])))
-    return err, times["track"][0], times["track"][1]
+        bounds[arm] = _product_yardstick(
+            "cartpole %s %d+%d" % (arm, arrays.admm.Kinv.shape[0],
+                                   arrays.admm.As.shape[0]),
+            200, arrays.admm, th, CP_ITERS, times[arm][0], dev)
+    return err, times["track"][0], times["track"][1], bounds["track"]
 
 
 def phase_ip_card_vs_cpu(sc, setups, dev, tube_sweep):
@@ -455,6 +453,7 @@ def main():
     sys.meta_path.insert(0, _NoJax())
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from rtmpc_tpu_torch.models import flagship_setup
+    from rtmpc_tpu_torch.ops.kernel_bench import card as _card
     from rtmpc_tpu_torch.ops.qp_cuda import build_kernel
 
     dev = torch.device("cuda", 0)
@@ -479,7 +478,10 @@ def main():
           % (time.perf_counter() - t0, arrays.admm.Kinv.shape[0],
              arrays.admm.As.shape[0], arrays.admm.rho.min().item()))
 
-    err, ms, plain_ms = phase_kernel_vs_plain(arrays, arrays64, dev)
+    err, ms, plain_ms, bound = phase_kernel_vs_plain(arrays, arrays64, dev)
+    # phase 5b: random QPs at the edges of the two paths' widths
+    from rtmpc_tpu_torch.ops.kernel_bench import WIDTH_SHAPES, check_shapes
+    check_shapes(WIDTH_SHAPES, dev)
     launches, _ = phase_full_loop(arrays, cfg, dev)
     phase_parity(setup, arrays, cfg, dev)
 
@@ -491,7 +493,8 @@ def main():
     t0 = time.perf_counter()
     sc, setups = _cartpole_setups()
     print("cartpole setup %.1f s" % (time.perf_counter() - t0))
-    err_l2, ms_l2, plain_ms_l2 = phase_cartpole_kernel(sc, setups, dev)
+    err_l2, ms_l2, plain_ms_l2, bound_l2 = phase_cartpole_kernel(
+        sc, setups, dev)
     sweep = phase_sweep(
         "ip_riccati", os.path.join(out_dir, "results_linear_ip_riccati.json"),
         setups)
@@ -529,12 +532,18 @@ def main():
     kernel = dict(name="admm_solve_cuda", route="cuda",
                   source="rtmpc_tpu_torch/csrc/admm_kernel.cu",
                   replaces="rtmpc_tpu/ops/qp_pallas.py:106")
+    # library_ms: no single PyTorch call computes an ADMM phase; the time of
+    # its products alone in torch.mm is library_product_ms
     print(json.dumps({"kernels": [
         dict(kernel, name="admm_solve_cuda (admm_kernel, n_p+m_p <= 192)",
-             launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms),
-        dict(kernel, name="admm_solve_cuda (admm_kernel_l2, n_p+m_p <= "
-             "2048)", launches=launches_l2, max_abs_err=err_l2, ms=ms_l2,
-             plain_ms=plain_ms_l2),
+             launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+             bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+             library_product_ms=bound[2]),
+        dict(kernel, name="admm_solve_cuda (admm_kernel_cluster, n_p+m_p "
+             "<= 2048)", launches=launches_l2, max_abs_err=err_l2, ms=ms_l2,
+             plain_ms=plain_ms_l2, bound_ms=bound_l2[0],
+             bound_by=bound_l2[1], library_ms=None,
+             library_product_ms=bound_l2[2]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,13 +7,17 @@ kernel of the main path (the fused ADMM solve) is a hand-written CUDA
 kernel for Hopper (``csrc/admm_kernel.cu``, bound in ``ops/qp_cuda.py``).
 
 The JAX package stays the reference each module is tested against
-(``tests/test_torch_*.py``).  This package imports ``torch`` and never
-``jax``; its host setup shares the NumPy-only ``rtmpc_tpu.utils`` and
-``rtmpc_tpu.sets`` subpackages (polytopes, synthesis, invariant sets),
-which import no JAX either.
+(``tests/test_torch_*.py``).  This package imports ``torch``, never ``jax``
+and nothing of ``rtmpc_tpu``: its host setup runs on its own NumPy-only
+``utils`` and ``sets`` subpackages (polytopes, synthesis, invariant sets),
+copies held bit-equal to the JAX package's by the tests.
 
 Subpackages
 -----------
+utils     : polytope toolbox, discrete-time synthesis (dlqr/dlyap/c2d), the
+            binding of the native LP library.
+sets      : invariant-set algorithms (Rakovic mRPI, Darup RPI, Gilbert-Tan
+            maximal admissible set), constraint tightening.
 ops       : precision policy, QP assembly, batched ADMM, infeasibility
             certificates, the CUDA kernel wrapper, the structured interior
             point.

@@ -3,9 +3,8 @@
 Ported so far: the linearized cartpole of ``results_linear_system.py``:
 50 Hz, N=20, Q=diag(100,10,100,10), R=0.1, the disturbance box the
 reference estimated from its PyBullet plant, the state box (angle +-0.3)
-and the input box +-10.  Built on the shared NumPy-only
-``rtmpc_tpu.utils`` (``box``, ``c2d``), so both packages get bit-equal
-matrices.
+and the input box +-10.  Built on the port's own ``utils`` (``box``,
+``c2d``), which give matrices bit-equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -14,10 +13,10 @@ import dataclasses
 
 import numpy as np
 
-from rtmpc_tpu.utils.polytope import Polytope, box
-from rtmpc_tpu.utils.synthesis import c2d
-
 from ..models.plants import CartpoleParams, cartpole_linearized
+
+from ..utils.polytope import Polytope, box
+from ..utils.synthesis import c2d
 
 __all__ = ["CartpoleScenario", "cartpole_scenario"]
 

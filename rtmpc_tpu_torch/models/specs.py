@@ -1,10 +1,11 @@
 """Controller setup of the flagship tube-tracking MPC (counterpart of
 ``rtmpc_tpu/models/specs.py``).
 
-The host setup is the JAX package's float64 NumPy code, built on the
-shared NumPy-only ``rtmpc_tpu.utils`` (polytopes, synthesis) and
-``rtmpc_tpu.sets`` (mRPI, Gilbert-Tan sets, tightening), so the port and
-the JAX package freeze bit-identical problem data.  ``MPCSetup.to_device``
+The host setup is float64 NumPy code, statement for statement the JAX
+package's, built on the port's own ``utils`` (polytopes, synthesis) and
+``sets`` (mRPI, Gilbert-Tan sets, tightening), so the port and the JAX
+package freeze bit-identical problem data without the port importing
+anything of ``rtmpc_tpu``.  ``MPCSetup.to_device``
 freezes it into ``ControllerArrays`` (tensors) and ``ControllerConfig``
 (static metadata) for the rollout engine.
 
@@ -26,11 +27,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from rtmpc_tpu.utils.polytope import Polytope, box
-from rtmpc_tpu.utils.synthesis import dlqr, dlyap
-from rtmpc_tpu.sets.invariant import (determine_mrpi, max_admissible_set,
-                                      tighten_constraints)
-
+from ..sets.invariant import (determine_mrpi, max_admissible_set,
+                              tighten_constraints)
+from ..utils.polytope import Polytope, box
+from ..utils.synthesis import dlqr, dlyap
 from ..ops.assembly import QPTemplate, build_mpc_qp
 from ..ops.precision import DEFAULT_DTYPE
 from ..ops.ip_riccati import RiccatiIPSpec, prepare_ip_riccati

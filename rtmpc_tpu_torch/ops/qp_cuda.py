@@ -4,12 +4,15 @@
 launch of the hand-written kernel ``csrc/admm_kernel.cu`` (the port of the
 Pallas kernel ``_admm_kernel``).  The kernel has two paths, picked by the
 width ``n_p + m_p`` of the composites: up to 192 columns [Gxc; Gsc] sits
-in shared memory (``admm_kernel``, the flagship's 40 + 112), up to 2048 it
-is read from L2 (``admm_kernel_l2``, the cartpole's 112 + 792 and
-112 + 840).  On CPU tensors it runs ``_admm_solve_cuda_plain``, the same
-composite-form iteration in batched ``torch.matmul``; the CPU tests hold
-that plain version against the JAX package, and ``chip_smoke.py`` holds
-the kernel against it on the card.
+in shared memory and a thread accumulates an 8 x 4 register tile
+(``admm_kernel``, path ``"smem"``, the flagship's 40 + 112); up to 2048
+the columns are split over a cluster of 8 thread blocks that stream their
+slices of [Gxc; Gsc] from L2 and exchange the iterate through distributed
+shared memory (``admm_kernel_cluster``, path ``"l2"``, the cartpole's
+112 + 792 and 112 + 840).  On CPU tensors it runs
+``_admm_solve_cuda_plain``, the same composite-form iteration in batched
+``torch.matmul``; the CPU tests hold that plain version against the JAX
+package, and ``chip_smoke.py`` holds the kernel against it on the card.
 
 The kernel is built from the source in this checkout at first use, with
 ``nvcc`` for ``sm_90a``, into ``build/rtmpc_tpu_torch/`` next to the
@@ -32,12 +35,13 @@ import subprocess
 import tempfile
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .qp import (ADMMSolution, ADMMSpec, ADMMState, init_admm_state,
                  problem_vectors)
 
-__all__ = ["admm_solve_cuda", "build_kernel", "kernel_path"]
+__all__ = ["admm_solve_cuda", "build_kernel", "kernel_path", "kernel_rows"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "csrc", "admm_kernel.cu")
@@ -46,8 +50,8 @@ _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _CUDA_HOME_DEFAULT = "/usr/local/cuda"
-# n_p + m_p limits of the kernel's two paths (kMaxThreads and
-# kThreadsL * kMaxColsL in the source)
+# n_p + m_p limits of the kernel's two paths (kMaxColsSmall and
+# kMaxColsLarge in the source)
 _PATH_LIMITS = (("smem", 192), ("l2", 2048))
 
 
@@ -117,6 +121,58 @@ def kernel_path(n_cols: int) -> str:
             return path
     raise ValueError(f"admm_solve_cuda: n_p + m_p = {n_cols} exceeds the "
                      f"kernel's {_PATH_LIMITS[-1][1]} columns")
+
+
+def kernel_rows(n_p: int, m_p: int) -> int:
+    """Batch rows that one thread block (path ``"smem"``) or one cluster
+    (path ``"l2"``) of the kernel owns at this shape: the kernel picks it
+    at launch, and a batch that is no multiple of it has a masked tail.
+    Builds the kernel, so it needs the CUDA toolkit."""
+    kernel_path(n_p + m_p)
+    fn = _library().rtmpc_admm_rows_per_group
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 2
+    return int(fn(n_p, m_p))
+
+
+def _synthetic_spec(n_p: int, m_p: int, ntheta: int = 4, seed: int = 0,
+                    dtype: torch.dtype = torch.float32,
+                    device="cpu") -> ADMMSpec:
+    """A random, feasible box-QP of any shape in the solver's prepared
+    form (float64 NumPy, then cast), for holding the kernel to its plain
+    version at widths no ported controller has: unit-scale strictly convex
+    cost, dense constraint rows of unit norm, every eighth row an equality
+    (rho 1000 times larger there, as ``prepare_admm`` sets it), bounds that
+    contain the origin."""
+    rng = np.random.default_rng(seed)
+    n, m = n_p, m_p
+    F = rng.standard_normal((n, n)) / np.sqrt(n)
+    Ps = np.eye(n) + 0.5 * F @ F.T
+    As = rng.standard_normal((m, n))
+    As /= np.linalg.norm(As, axis=1, keepdims=True)
+    is_eq = np.arange(m) % 8 == 0
+    rho = np.where(is_eq, 500.0, 0.5)
+    sigma, alpha = 1e-6, 1.6
+    Kinv = np.linalg.inv(Ps + sigma * np.eye(n) + (As.T * rho) @ As)
+    u0 = np.where(is_eq, 0.0, rng.uniform(0.05, 0.5, m))
+    l0 = np.where(is_eq, 0.0, -rng.uniform(0.05, 0.5, m))
+    Mb = np.where(is_eq[:, None], 0.0,
+                  0.01 * rng.standard_normal((m, ntheta)))
+    M1, M2 = sigma * Kinv, Kinv @ As.T
+
+    def tensor(a):
+        return torch.tensor(np.array(a, order="C"), dtype=dtype,
+                            device=device)
+
+    return ADMMSpec(
+        Kinv=tensor(Kinv), Ps=tensor(Ps), As=tensor(As), rho=tensor(rho),
+        rho_inv=tensor(1.0 / rho), q0=tensor(rng.standard_normal(n)),
+        Mq=tensor(rng.standard_normal((n, ntheta))), l0=tensor(l0),
+        Ml=tensor(Mb), u0=tensor(u0), Mu=tensor(Mb),
+        D=tensor(rng.uniform(0.5, 2.0, n)), E=tensor(np.ones(m)),
+        cinv=tensor(1.0), sigma=tensor(sigma), alpha=tensor(alpha),
+        Gxc=tensor(np.concatenate([M1.T, (As @ M1).T], axis=1)),
+        Gsc=tensor(np.concatenate([M2.T, (As @ M2).T], axis=1)),
+        Kcat=tensor(np.concatenate([Kinv.T, Kinv.T @ As.T], axis=1)))
 
 
 def _admm_solve_cuda_plain(spec: ADMMSpec, theta: torch.Tensor,

@@ -1,7 +1,7 @@
 """The port's jax-free cartpole setup against the JAX package's.
 
-Both packages build the Fig. 3a controllers from the same NumPy code on
-the shared ``rtmpc_tpu.utils``/``rtmpc_tpu.sets``, so everything is
+Both packages build the Fig. 3a controllers from the same NumPy code, each
+on its own ``utils``/``sets`` (the port's are copies), so everything is
 bit-equal: the scenario, the ``setup_tracking`` and ``setup_tube_tracking
 (rpi_method=1, fixed_initial_state=True)`` templates, the structured IP's
 spec from ``to_device(solver="ip_riccati", float64)`` (against the JAX

@@ -26,9 +26,10 @@ from rtmpc_tpu.ops.qp import (infeasibility_certificates as
 from rtmpc_tpu.ops.qp import prepare_admm as jax_prepare_admm
 from rtmpc_tpu.parallel.rollout import (make_batched_rollout as
                                         jax_batched_rollout)
-from rtmpc_tpu.utils.polytope import box
+from rtmpc_tpu.utils.polytope import box as jax_box
 
 from rtmpc_tpu_torch.models import setup_tracking, spec_from_numpy
+from rtmpc_tpu_torch.utils import box
 from rtmpc_tpu_torch.ops.qp import admm_solve, infeasibility_certificates
 from rtmpc_tpu_torch.ops.qp_cuda import admm_solve_cuda
 from rtmpc_tpu_torch.parallel import make_batched_rollout
@@ -47,8 +48,15 @@ def _one_torch_thread():
 NX = 2
 A = np.array([[1.0, 1.0], [0.0, 1.0]])
 B = np.array([[0.0], [1.0]])
-ARGS = (A, B, np.eye(2), np.eye(1), 10, box(np.array([8.0, 8.0])),
-        box(np.array([1.0])))
+
+
+def _args(box_fn):
+    """The double-integrator tracking problem, its boxes made by either
+    package's ``box``."""
+    return (A, B, np.eye(2), np.eye(1), 10, box_fn(np.array([8.0, 8.0])),
+            box_fn(np.array([1.0])))
+
+
 THETAS = np.array([[20.0, 0.0, 0.0, 0.0],     # x_init outside X: empty QP
                    [1.0, 2.0, 5.0, 0.0], [0.0, 0.0, -9.0, 0.0],
                    [-4.0, 1.0, 4.0, 0.0]])
@@ -57,7 +65,7 @@ T = 30
 
 @pytest.fixture(scope="module")
 def jax_setup():
-    return jax_setup_tracking(*ARGS)
+    return jax_setup_tracking(*_args(jax_box))
 
 
 def test_certificates_match_jax(jax_setup):
@@ -102,7 +110,7 @@ def test_closed_loop_arm_stop_matches_jax(jax_setup, solver):
     jcarry, jouts = jax.jit(jax_batched_rollout(
         ja, jc, T, actuator_mode="smart", infeas_mode="certificate"))(
             *map(jnp.asarray, inputs))
-    pa, pc = setup_tracking(*ARGS).to_device(torch.float64, "cpu", **kw)
+    pa, pc = setup_tracking(*_args(box)).to_device(torch.float64, "cpu", **kw)
     carry, outs = make_batched_rollout(
         pa, pc, T, actuator_mode="smart", infeas_mode="certificate")(
             *map(torch.tensor, inputs))

@@ -14,12 +14,18 @@ import pytest
 import torch
 
 from rtmpc_tpu_torch.models import flagship_setup
-from rtmpc_tpu_torch.ops.qp_cuda import _admm_solve_cuda_plain, admm_solve_cuda
+from rtmpc_tpu_torch.ops.kernel_bench import (CP_Y_ATOL, CP_Z_ATOL, Y_ATOL,
+                                              Y_ATOL_SMALL_B, Z_ATOL,
+                                              compare_with_plain)
+from rtmpc_tpu_torch.ops.qp_cuda import (_admm_solve_cuda_plain,
+                                         _synthetic_spec, admm_solve_cuda,
+                                         kernel_path, kernel_rows)
 from rtmpc_tpu_torch.parallel import make_batched_rollout
 from rtmpc_tpu_torch.protocol import draw_disturbances, draw_loss_masks
 
 KW = dict(iters=60, iters2=60, alpha=1.8, rho2_scale=0.2)
-Z_ATOL, Y_ATOL = 1e-4, 2e-3     # float32, as tests/test_qp_pallas.py
+# the bars (Z_ATOL, Y_ATOL, ...) are those of ops/kernel_bench.py, which
+# chip_smoke.py holds the kernel to as well
 
 
 @pytest.fixture(scope="module")
@@ -36,32 +42,41 @@ def _theta(B, seed):
                         device="cuda")
 
 
-def _assert_close(got, want, y_atol=Y_ATOL):
+def _assert_close(got, want):
     torch.testing.assert_close(got.z_primal, want.z_primal, rtol=0,
                                atol=Z_ATOL)
     torch.testing.assert_close(got.state.x, want.state.x, rtol=0, atol=Z_ATOL)
     torch.testing.assert_close(got.state.y, want.state.y, rtol=0,
-                               atol=y_atol)
+                               atol=Y_ATOL)
     torch.testing.assert_close(got.r_prim, want.r_prim, rtol=5e-2, atol=1e-4)
     torch.testing.assert_close(got.r_dual, want.r_dual, rtol=5e-2,
                                atol=1e-3)
 
 
-@pytest.mark.parametrize("B", [1, 17, 4099])
-def test_kernel_matches_plain_version(flagship_cuda, B):
+# B: a batch size, or an offset from the rows one thread block (or cluster)
+# of the kernel owns at the shape ("rows-1": one row less than a full group)
+@pytest.mark.parametrize("B", [1, 17, "rows-1", "rows+1", 4099])
+@pytest.mark.parametrize("shape", ["flagship", "random 48+144"])
+def test_kernel_matches_plain_version(flagship_cuda, shape, B):
     """Cold start at phase 1, then warm start at phase 2; the batch tail
-    (B not a multiple of 16) is masked in the kernel."""
-    arrays, _ = flagship_cuda
-    th1, th2 = _theta(B, 0), _theta(B, 1)
-    before = admm_solve_cuda.launches
-    k1 = admm_solve_cuda(arrays.admm, th1, None, 60)
-    p1 = _admm_solve_cuda_plain(arrays.admm, th1, None, 60)
-    k2 = admm_solve_cuda(arrays.admm2, th2, p1.state, 60)
-    p2 = _admm_solve_cuda_plain(arrays.admm2, th2, p1.state, 60)
-    torch.cuda.synchronize()
-    assert admm_solve_cuda.launches == before + 2
-    _assert_close(k1, p1)
-    _assert_close(k2, p2)
+    (B not a multiple of a block's rows) is masked in the kernel.  The
+    flagship's 40 + 112 columns, and a random QP at the 192 columns that
+    are the shared-memory path's most."""
+    if shape == "flagship":
+        spec1, spec2 = flagship_cuda[0].admm, flagship_cuda[0].admm2
+    else:
+        spec1 = spec2 = _synthetic_spec(48, 144, 4, seed=192, device="cuda")
+    n_p, m_p = spec1.Kinv.shape[0], spec1.As.shape[0]
+    assert kernel_path(n_p + m_p) == "smem"
+    y_atol = Y_ATOL
+    if isinstance(B, str):
+        B = kernel_rows(n_p, m_p) + int(B[4:])
+        y_atol = Y_ATOL_SMALL_B
+    before = dict(admm_solve_cuda.launches_by_path)
+    errs = compare_with_plain(spec1, spec2, _theta(B, 0), _theta(B, 1),
+                              (60, 60), (Z_ATOL, y_atol))
+    assert admm_solve_cuda.launches_by_path["smem"] == before["smem"] + 2
+    assert max(errs["cold_x"], errs["warm_x"]) <= Z_ATOL
 
 
 def test_kernel_zero_iterations_returns_state(flagship_cuda):
@@ -123,9 +138,6 @@ def test_step_profile_reads_the_kernel(flagship_cuda):
 # structured interior point on the card
 # ---------------------------------------------------------------------------
 
-# float32 kernel vs plain version, the bars of chip_smoke.py phase 8 (5-10x
-# the z 2.09e-4 / y 2.72e-3 read on an NVIDIA H100 80GB HBM3 at 700 W)
-CP_Z_ATOL, CP_Y_ATOL = 1.5e-3, 2e-2
 IP_OBJ_RTOL = 1e-8                     # card vs CPU, float64
 
 
@@ -152,32 +164,36 @@ def _cartpole_theta(B, seed, dtype=torch.float32):
     return torch.tensor(theta, dtype=dtype, device="cuda")
 
 
-@pytest.mark.parametrize("B", [37, 200])
-@pytest.mark.parametrize("arm", ["tube", "track"])
+@pytest.mark.parametrize("B", [1, "rows-1", "rows+1", 37, 200])
+@pytest.mark.parametrize("arm", ["tube", "track", "random 41+152",
+                                 "random 256+1792"])
 def test_l2_path_matches_plain_version(cartpole, arm, B):
-    """The large-composite path (112 + 792 and 112 + 840 columns): 200
-    cold iterations at phase 1, then 200 warm at phase 2."""
+    """The large-composite path: the cartpole's 112 + 792 and 112 + 840
+    columns (200 cold iterations at phase 1, then 200 warm at phase 2), and
+    random QPs at the 193 and 2048 columns that are the path's least and
+    most (193 is no multiple of 4: the unaligned loads)."""
     from rtmpc_tpu_torch.apps.common import ADMM_SCHEDULE
-    arrays, _ = cartpole[1][arm].to_device(torch.float32, "cuda",
-                                           solver="cuda", **ADMM_SCHEDULE)
+    if arm.startswith("random"):
+        n_p, m_p = (int(v) for v in arm.split()[1].split("+"))
+        spec1 = spec2 = _synthetic_spec(n_p, m_p, 8, seed=n_p + m_p,
+                                        device="cuda")
+        iters, bars = 50, (Z_ATOL, Y_ATOL)
+    else:
+        arrays, _ = cartpole[1][arm].to_device(torch.float32, "cuda",
+                                               solver="cuda", **ADMM_SCHEDULE)
+        spec1, spec2 = arrays.admm, arrays.admm2
+        iters, bars = 200, (CP_Z_ATOL, CP_Y_ATOL)
+    n_p, m_p = spec1.Kinv.shape[0], spec1.As.shape[0]
+    assert kernel_path(n_p + m_p) == "l2"
+    if isinstance(B, str):
+        B = kernel_rows(n_p, m_p) + int(B[4:])
     th = _cartpole_theta(B, 0)
     before = dict(admm_solve_cuda.launches_by_path)
-    k1 = admm_solve_cuda(arrays.admm, th, None, 200)
-    p1 = _admm_solve_cuda_plain(arrays.admm, th, None, 200)
-    k2 = admm_solve_cuda(arrays.admm2, th, p1.state, 200)
-    p2 = _admm_solve_cuda_plain(arrays.admm2, th, p1.state, 200)
-    torch.cuda.synchronize()
+    compare_with_plain(spec1, spec2, th, th, (iters, iters), bars)
     assert admm_solve_cuda.launches_by_path["l2"] == before["l2"] + 2
-    for k, p in ((k1, p1), (k2, p2)):
-        torch.testing.assert_close(k.z_primal, p.z_primal, rtol=0,
-                                   atol=CP_Z_ATOL)
-        torch.testing.assert_close(k.state.y, p.state.y, rtol=0,
-                                   atol=CP_Y_ATOL)
-        assert bool(torch.isfinite(k.r_prim).all())
 
 
 def test_kernel_refuses_too_wide_qps(flagship_cuda):
-    from rtmpc_tpu_torch.ops.qp_cuda import kernel_path
     with pytest.raises(ValueError, match="2048"):
         kernel_path(4096)
 

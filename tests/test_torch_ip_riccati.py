@@ -42,9 +42,10 @@ from rtmpc_tpu.models.specs import (setup_tube_tracking as
 from rtmpc_tpu.ops.assembly import QPTemplate as JaxQPTemplate
 from rtmpc_tpu.ops.ip_riccati import ip_riccati_solve as jax_solve
 from rtmpc_tpu.ops.ip_riccati import prepare_ip_riccati as jax_prepare
-from rtmpc_tpu.utils.polytope import box
+from rtmpc_tpu.utils.polytope import box as jax_box
 
 from rtmpc_tpu_torch.models import ric_spec_from_numpy, setup_tracking
+from rtmpc_tpu_torch.utils import box
 from rtmpc_tpu_torch.ops.ip_riccati import (_plu_factor, _plu_solve,
                                             init_ip_state, ip_riccati_solve,
                                             prepare_ip_riccati)
@@ -92,7 +93,8 @@ def test_small_pivoted_lu(n):
 @pytest.fixture(scope="module")
 def di_tracking():
     st = jax_setup_tracking(DI_A, DI_B, np.eye(2), np.array([[0.1]]), 10,
-                            box(np.array([8.0, 8.0])), box(np.array([1.0])))
+                            jax_box(np.array([8.0, 8.0])),
+                            jax_box(np.array([1.0])))
     return st.template, jax_prepare(st.template, dtype=jnp.float64)
 
 
@@ -135,8 +137,8 @@ def test_free_initial_state_matches_jax():
     """Tube-init (free x_0): iterative refinement runs in float64 too."""
     st = setup_tube_regulator(
         DI_A, np.array([[0.5], [1.0]]), np.eye(2), np.array([[0.01]]), 9,
-        box(np.array([100.0, 2.0])), box(np.array([1.0])),
-        box(np.array([0.1, 0.1])))
+        jax_box(np.array([100.0, 2.0])), jax_box(np.array([1.0])),
+        jax_box(np.array([0.1, 0.1])))
     jspec = jax_prepare(st.template, dtype=jnp.float64)
     th = np.array([[-6.0, 0.0, 0.0, 0.0], [-4.0, 1.0, 0.0, 0.0],
                    [3.0, -0.5, 0.0, 0.0]])

@@ -1,8 +1,13 @@
-"""The port runs without JAX, and its kernel build fails loudly without nvcc.
+"""The port runs without JAX and without the JAX package ``rtmpc_tpu``, and
+its kernel build fails loudly without nvcc.
 
-Both checks run in a fresh interpreter (a subprocess), so nothing this
-test process imported (JAX included, via ``conftest.py``) leaks in.
+The run-time checks run in a fresh interpreter (a subprocess), so nothing
+this test process imported (JAX included, via ``conftest.py``) leaks in;
+there every import of ``jax`` or of ``rtmpc_tpu`` raises.  A third check
+reads the port's sources for such imports.
 """
+
+import ast
 
 import os
 import subprocess
@@ -16,7 +21,8 @@ _BLOCK_JAX = textwrap.dedent("""
 
     class NoJax(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            if (name in ("jax", "rtmpc_tpu")
+                    or name.startswith(("jax.", "jaxlib", "rtmpc_tpu."))):
                 raise ImportError("blocked: " + name)
 
     sys.meta_path.insert(0, NoJax())
@@ -52,7 +58,7 @@ _ROLLOUT = _BLOCK_JAX + textwrap.dedent("""
     from rtmpc_tpu_torch.ops import (infeasibility_certificates,  # noqa: F401
                                      ip_riccati_solve)
     from rtmpc_tpu_torch.parallel import run_mc_sweep  # noqa: F401
-    from rtmpc_tpu.utils.polytope import box
+    from rtmpc_tpu_torch.utils import box
     st = setup_tracking([[1.0, 1.0], [0.0, 1.0]], [[0.0], [1.0]], np.eye(2),
                         [[0.1]], 5, box(np.array([8.0, 8.0])),
                         box(np.array([1.0])))
@@ -61,17 +67,20 @@ _ROLLOUT = _BLOCK_JAX + textwrap.dedent("""
                            cfg.N)
     assert float(sol.r_prim) < 1e-9
     assert cartpole_scenario().N == 20
-    try:
-        import jax  # noqa: F401
-    except ImportError:
-        pass
-    else:
-        raise SystemExit("the jax import was not blocked")
-    assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
+    for blocked in ("jax", "rtmpc_tpu", "rtmpc_tpu.utils"):
+        try:
+            __import__(blocked)
+        except ImportError:
+            pass
+        else:
+            raise SystemExit("the import of %s was not blocked" % blocked)
+    assert not [m for m in sys.modules
+                if m in ("jax", "rtmpc_tpu")
+                or m.startswith(("jax.", "rtmpc_tpu."))]
     print("OK")
 """)
 
-_BUILD = textwrap.dedent("""
+_BUILD = _BLOCK_JAX + textwrap.dedent("""
     import tempfile
     from rtmpc_tpu_torch.ops import qp_cuda
 
@@ -110,3 +119,28 @@ def test_kernel_build_without_nvcc_raises(tmp_path):
     empty = tmp_path / "empty_bin"
     empty.mkdir()
     _run(_BUILD, _env(PATH=str(empty)), tmp_path)
+
+
+def _imported_modules(path):
+    """Module names a source file imports (absolute imports only), read
+    from its syntax tree, so docstrings and comments do not count."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    sources = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "rtmpc_tpu_torch")):
+        sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(sources) > 20
+    bad = [(os.path.relpath(p, REPO), m) for p in sources
+           for m in _imported_modules(p)
+           if m.split(".")[0] in ("rtmpc_tpu", "jax", "jaxlib")]
+    assert not bad, bad

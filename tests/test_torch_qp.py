@@ -19,7 +19,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from rtmpc_tpu.utils import box
+from rtmpc_tpu.utils import box as jax_box
 from rtmpc_tpu.models import setup_tube_tracking
 from rtmpc_tpu.ops.qp import ADMMState as JaxADMMState
 from rtmpc_tpu.ops.qp import admm_solve as jax_admm_solve
@@ -48,8 +48,8 @@ def _flagship():
     return setup_tube_tracking(
         np.array([[1.0, 1.0], [0.0, 1.0]]), np.array([[0.0], [1.0]]),
         np.eye(2), np.eye(1), 10,
-        box(np.array([8.0, 8.0])), box(np.array([1.0])),
-        box(np.array([0.1, 0.1])), fixed_initial_state=True)
+        jax_box(np.array([8.0, 8.0])), jax_box(np.array([1.0])),
+        jax_box(np.array([0.1, 0.1])), fixed_initial_state=True)
 
 
 @pytest.fixture(scope="module")
@@ -237,3 +237,69 @@ def test_kernel_path_limits():
     assert kernel_path(193) == "l2" and kernel_path(2048) == "l2"
     with pytest.raises(ValueError, match="2048"):
         kernel_path(2049)
+
+
+@pytest.mark.parametrize("n_p,m_p", [(48, 144), (41, 152), (64, 320)])
+def test_plain_version_on_random_qps_matches_admm_solve(n_p, m_p):
+    """``_synthetic_spec`` (the random QPs that hold the kernel to its plain
+    version at widths no controller has, odd ones included) is a consistent
+    prepared problem: on it the composite-form plain version and the
+    three-matmul ``admm_solve`` are the same iteration, to float64
+    rounding, and the iterates stay bounded and approach feasibility."""
+    from rtmpc_tpu_torch.ops.qp_cuda import _synthetic_spec
+    spec = _synthetic_spec(n_p, m_p, 4, seed=3, dtype=torch.float64)
+    assert spec.Gxc.shape == (n_p, n_p + m_p)
+    assert spec.Gsc.shape == (m_p, n_p + m_p)
+    theta = torch.tensor(np.random.default_rng(4).uniform(-2, 2, (6, 4)))
+    a = _admm_solve_cuda_plain(spec, theta, None, 80)
+    b = admm_solve(spec, theta, None, iters=80)
+    assert (a.z_primal - b.z_primal).abs().max().item() < 1e-11
+    assert (a.state.y - b.state.y).abs().max().item() < 1e-9
+    assert (a.r_prim - b.r_prim).abs().max().item() < 1e-11
+    short = _admm_solve_cuda_plain(spec, theta, None, 10)
+    assert a.r_prim.max().item() < short.r_prim.max().item() < 10.0
+
+
+def test_compare_with_plain_holds_its_bars():
+    """The comparison that holds the kernel to its plain version on the
+    card (``kernel_bench.compare_with_plain``), run where the wrapper takes
+    the plain version: float32 against itself is exact, against float64 it
+    is within ``F64_RATIO`` of itself, and an absolute float64 bar that the
+    float32 rounding exceeds raises."""
+    from rtmpc_tpu_torch.ops.kernel_bench import compare_with_plain
+    from rtmpc_tpu_torch.ops.qp_cuda import _synthetic_spec
+    spec = _synthetic_spec(12, 40, 4, seed=5)
+    spec64 = _synthetic_spec(12, 40, 4, seed=5, dtype=torch.float64)
+    th = torch.tensor(np.random.default_rng(6).uniform(-2, 2, (9, 4)),
+                      dtype=torch.float32)
+    for warm_from_kernel in (False, True):
+        errs = compare_with_plain(spec, spec, th, th, (30, 20), (0.0, 0.0),
+                                  warm_from_kernel=warm_from_kernel,
+                                  specs64=(spec64, spec64))
+        assert errs["cold_z"] == errs["warm_y"] == errs["warm_rdual"] == 0.0
+        assert 0.0 < errs["f64_cold_y"] == errs["plain_f64_cold_y"] < 1e-2
+    compare_with_plain(spec, spec, th, th, (30, 20), specs64=(spec64, spec64),
+                       f64_bars=(1e-3, 1e-2))
+    with pytest.raises(RuntimeError, match="f64_cold_z"):
+        compare_with_plain(spec, spec, th, th, (30, 20),
+                           specs64=(spec64, spec64), f64_bars=(0.0, 1e-2))
+
+
+@pytest.mark.parametrize("n_p,m_p,B,iters,want_ms,ratio", [
+    (40, 112, 16384, 60, 0.31504, 2.1879),
+    (112, 792, 200, 200, 0.22794, 4.3022),
+    (112, 840, 200, 200, 0.24084, 4.5156)])
+def test_kernel_bound_counts_the_factored_form(n_p, m_p, B, iters, want_ms,
+                                               ratio):
+    """``roofline_ms`` counts the least operations an ADMM phase needs,
+    ``2 B (n^2 + 2 n m)`` an iteration and the residuals, at the FP32 peak;
+    the composite product the kernel runs is ``ratio`` times as many."""
+    from rtmpc_tpu_torch.ops.kernel_bench import (PEAK_FP32_FLOPS,
+                                                  composite_over_factored,
+                                                  roofline_ms)
+    ms, by = roofline_ms(B, n_p, m_p, 8, iters)
+    flops = 2.0 * B * (n_p * n_p + 2 * n_p * m_p) * (iters + 1)
+    assert by == "operations"
+    assert ms == pytest.approx(flops / PEAK_FP32_FLOPS * 1e3, rel=1e-12)
+    assert ms == pytest.approx(want_ms, rel=1e-4)
+    assert composite_over_factored(n_p, m_p) == pytest.approx(ratio, rel=1e-4)

@@ -20,7 +20,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from rtmpc_tpu.utils import box
+from rtmpc_tpu.utils import box as jax_box
 from rtmpc_tpu.models import setup_tube_tracking
 from rtmpc_tpu.parallel import make_batched_rollout as jax_batched_rollout
 from rtmpc_tpu.parallel import tracking_error_rms as jax_tracking_error_rms
@@ -62,8 +62,8 @@ def jax_runs():
     setup = setup_tube_tracking(
         np.array([[1.0, 1.0], [0.0, 1.0]]), np.array([[0.0], [1.0]]),
         np.eye(2), np.eye(1), 10,
-        box(np.array([8.0, 8.0])), box(np.array([1.0])),
-        box(np.array([0.1, 0.1])), fixed_initial_state=True)
+        jax_box(np.array([8.0, 8.0])), jax_box(np.array([1.0])),
+        jax_box(np.array([0.1, 0.1])), fixed_initial_state=True)
     arrays, cfg = setup.to_device(dtype=jnp.float64, **KW)
     runs = {}
     for scenario in ("constant", "saturating", "frozen"):

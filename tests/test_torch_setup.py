@@ -12,7 +12,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from rtmpc_tpu.utils import box
+from rtmpc_tpu.utils import box as jax_box
 from rtmpc_tpu.models import setup_regulator as jax_setup_regulator
 from rtmpc_tpu.models import setup_tube_tracking as jax_setup_tube_tracking
 from rtmpc_tpu.ops.qp import prepare_admm as jax_prepare_admm
@@ -30,8 +30,8 @@ def _jax_flagship():
     return jax_setup_tube_tracking(
         np.array([[1.0, 1.0], [0.0, 1.0]]), np.array([[0.0], [1.0]]),
         np.eye(2), np.eye(1), 10,
-        box(np.array([8.0, 8.0])), box(np.array([1.0])),
-        box(np.array([0.1, 0.1])), fixed_initial_state=True)
+        jax_box(np.array([8.0, 8.0])), jax_box(np.array([1.0])),
+        jax_box(np.array([0.1, 0.1])), fixed_initial_state=True)
 
 
 @pytest.fixture(scope="module")
@@ -99,7 +99,7 @@ def test_rho_autotune_bit_equal(tune_iters, want_rho):
     tmpl = jax_setup_regulator(
         np.array([[1.0, 1.0], [0.0, 1.0]]), np.array([[0.0], [1.0]]),
         np.eye(2), 0.01 * np.eye(1), 10,
-        box(np.array([8.0, 8.0])), box(np.array([1.0]))).template
+        jax_box(np.array([8.0, 8.0])), jax_box(np.array([1.0]))).template
     want = jax_prepare_admm(tmpl, tune_iters=tune_iters, dtype=jnp.float64)
     got = prepare_admm(tmpl, tune_iters=tune_iters, dtype=torch.float64)
     _assert_spec_equal(got, spec_from_numpy(
