@@ -47,15 +47,16 @@ Then the paper's Fig. 3a slice, the 4-D cartpole (N=20) of
      factored form's operations, the least the function needs) and the
      library's time for the products alone (``iters`` back-to-back
      ``torch.mm`` in float32, TF32 off);
-  9. (run after 10, whose trajectories give its inputs) the structured
+  9. (run after 15, whose trajectories give its inputs) the structured
      interior point in float64 on the card against the CPU, on 64 thetas
-     from the sweep's sample trajectories;
- 10. the full sweep on the card: float64 ``ip_riccati``, both arms, 10
-     loss probabilities x 20 runs x 250 steps from the committed draws;
-     ``compare_linear`` against ``RESULTS_LINEAR_CPU_F64_r05.json``
-     passes, the tube arm is feasible everywhere, every
-     ``track_infeasible`` equals the truth's (the app's own checks);
-     the wall time of each arm and of a solve is printed;
+     from the sample trajectories of a full-size float64 sweep;
+ 10. the sweep on the card in float64 ``ip_riccati``, both arms, at the
+     app's ``--quick`` depth (4 loss probabilities x 4 runs x 60 steps,
+     cut from the full size to leave the time to phases 14 and 15): the
+     tube arm is feasible everywhere, every output is finite, the app's
+     own checks pass.  The full-size run that ``compare_linear`` holds to
+     ``RESULTS_LINEAR_CPU_F64_r05.json`` is ``python3 -m
+     rtmpc_tpu_torch.apps.results_linear --device cuda``;
  11. the same sweep under ``--solver cuda`` (the ADMM kernel, float32):
      2 kernel launches a step on the tube arm, 3 on the tracking arm (the
      certificate's extra iterations are one more), every output finite,
@@ -63,16 +64,55 @@ Then the paper's Fig. 3a slice, the 4-D cartpole (N=20) of
      its rows are printed against the truth but not gated (the ADMM does
      not reach trajectory parity on this geometry).
 
+Then the rest of the paper's Results, the extended tube-tracking arm
+(Section IV.F) and the nonlinear cartpole plant (Figs. 3b/3c), the apps
+``rtmpc_tpu_torch.apps.results_linear_extended`` and ``results_nonlinear``:
+
+ 12. the extended controller is set up (two QPs of 112 + 1648 columns: the
+     initial state lies in the tube, one row for each of Z's 854);
+ 13. the kernel's cluster path at that shape (above 1024 columns a cluster
+     owns 8 rows), both QPs, as in phase 8: B=200, B=37, B=1 and one row
+     less and more than a cluster owns; times, bound and ``torch.mm``;
+ 14. both apps at full size under ``--solver cuda`` (3 arms x 200
+     rollouts x 250 steps each, ``results_nonlinear`` with ``--extended``):
+     every output finite, both tube arms feasible, the kernel launches as
+     reckoned (2 a step on RT-MPC, 3 on R-MPC, 4 on Ext-RT-MPC: 2 QPs x 2
+     phases; 6 where that arm runs on certificates), the tube invariant of
+     the RT-MPC arm on the sample trajectories (the extended arm's margin
+     is printed: its actuator resets the nominal state to the QP's, which
+     after a lost reply starts from a prediction and not from the plant's
+     state, so ``x - x_nom`` is not held to Z, in the JAX package
+     neither), ``max |phi| <= 0.3 + 1e-3`` on the nonlinear plant; rows
+     and the apps' own checks printed, not gated (ADMM);
+ 15. at full size in float64 ``ip_riccati``, side by side in two worker
+     processes (one after the other they took 604 s of a 905 s run on an
+     NVIDIA H100 80GB HBM3 machine with a slow host, three quarters of the
+     time this script may take): the Ext-RT-MPC arm on the linear plant
+     and the RT-MPC arm on the nonlinear plant (B=200, T=250, the
+     committed draws): feasible everywhere, the per-p mean RMS within
+     1e-4 (relative) of the JAX package's float64 rows
+     (``RESULTS_LINEAR_EXT_CPU_F64_JAX.json``,
+     ``RESULTS_NONLINEAR_EXT_CPU_F64_JAX.json``), the extended arm's error
+     at p=0.9 below 1.5x the reference's RT-MPC error there, ``max |phi|
+     <= 0.3 + 1e-3``;
+ 16. ``cartpole_zoh_step`` on the card against the CPU, float64, 1e-12.
+
 Prints the kernels' JSON record on the line before the last and, as the
 last line, ``{"ok": true, "device": {...}}``.
 """
 
+import concurrent.futures
+import contextlib
 import dataclasses
+import importlib
 import importlib.abc
+import io
 import json
+import multiprocessing
 import os
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -100,7 +140,11 @@ CP_ITERS = 200
 # The cartpole's optimal face is flat (scaled cost cond ~1e20): summing in
 # other orders moves the converged z along it at equal objectives.  Read on
 # the same card: max|dz| 1.34e-2, objectives 2.8e-10 relative, r_prim
-# <= 4.8e-11 and r_dual <= 1.24e-6 on both.
+# <= 4.8e-11 and r_dual <= 1.24e-6 on both.  The thetas are nominal states
+# of a full-size float64 sweep (phase 15's): the objectives are 2e5 to 2e7
+# (the offset cost) and the multipliers as large, so on the rougher states
+# of a float32 ADMM sweep or of a sweep's first 60 steps alone a primal
+# residual of 1.5e-10 already moves an objective by 6.1e-8 relative.
 IP_B = 64
 IP_Z_ATOL = 5e-2
 IP_OBJ_RTOL = 1e-8
@@ -145,16 +189,16 @@ def _inputs(B, dev, seed):
     return theta, gamma, w
 
 
-def _compare(arrays, arrays64, th1, th2, warm_from_kernel, iters, bars,
+def _compare(specs, specs64, th1, th2, warm_from_kernel, iters, bars,
              label="", f64_bars=None):
-    """``kernel_bench.compare_with_plain`` on a controller's two phases
-    (``admm``, then ``admm2`` warm), held against float64 too; prints the
-    errors and returns the largest of z and y against the plain version."""
+    """``kernel_bench.compare_with_plain`` on a QP's two phases (``specs``:
+    phase 1's spec, then phase 2's, run warm), held against float64 too
+    (``specs64``); prints the errors and returns the largest of z and y
+    against the plain version."""
     from rtmpc_tpu_torch.ops.kernel_bench import compare_with_plain
     errs = compare_with_plain(
-        arrays.admm, arrays.admm2, th1, th2, iters, bars,
-        warm_from_kernel=warm_from_kernel,
-        specs64=(arrays64.admm, arrays64.admm2), f64_bars=f64_bars)
+        *specs, th1, th2, iters, bars, warm_from_kernel=warm_from_kernel,
+        specs64=specs64, f64_bars=f64_bars)
     print("%skernel vs plain (B=%d, %d+%d iterations, phase 2 warm from the "
           "%s phase-1 state): %s"
           % (label + " " if label else "", th1.shape[0], *iters,
@@ -196,23 +240,24 @@ def phase_kernel_vs_plain(arrays, arrays64, dev):
                                              admm_solve_cuda, kernel_rows)
     rng = np.random.default_rng(0)
     iters, bars = (ITERS, ITERS2), (Z_ATOL, Y_ATOL)
+    specs, specs64 = ((a.admm, a.admm2) for a in (arrays, arrays64))
 
     def theta(B):
         return torch.tensor(rng.uniform(-2, 2, (B, 4)), dtype=torch.float32,
                             device=dev)
 
     # a ragged tail, with different thetas in the two phases
-    err = _compare(arrays, arrays64, theta(B_CHECK), theta(B_CHECK), False,
+    err = _compare(specs, specs64, theta(B_CHECK), theta(B_CHECK), False,
                    iters, bars)
     # the main path's shape: one theta for both phases, phase 2 from the
     # kernel's own phase-1 state
     thf = theta(B_FULL)
-    err = max(err, _compare(arrays, arrays64, thf, thf, True, iters, bars))
+    err = max(err, _compare(specs, specs64, thf, thf, True, iters, bars))
     # tiny and ragged around the rows of a thread block: the small batches'
     # own y bar and absolute bars against float64 (kernel_bench.py)
     rows = kernel_rows(arrays.admm.Kinv.shape[0], arrays.admm.As.shape[0])
     for B in (1, rows - 1, rows + 1):
-        err = max(err, _compare(arrays, arrays64, theta(B), theta(B), False,
+        err = max(err, _compare(specs, specs64, theta(B), theta(B), False,
                                 iters, (Z_ATOL, Y_ATOL_SMALL_B),
                                 f64_bars=F64_SMALL_B))
 
@@ -303,17 +348,6 @@ def phase_parity(setup, arrays, cfg, dev):
     _require(dx <= DX_PARITY and dx64 <= DX_PARITY, (dx, dx64))
 
 
-def _cartpole_setups():
-    """The Fig. 3a controllers as the app sets them up."""
-    from rtmpc_tpu_torch.apps.scenarios import cartpole_scenario
-    from rtmpc_tpu_torch.models import setup_tracking, setup_tube_tracking
-    sc = cartpole_scenario()
-    tube = setup_tube_tracking(sc.A, sc.B, sc.Q, sc.R, sc.N, sc.X, sc.U,
-                               sc.W, fixed_initial_state=True, rpi_method=1)
-    track = setup_tracking(sc.A, sc.B, sc.Q, sc.R, sc.N, sc.X, sc.U)
-    return sc, {"tube": tube, "track": track}
-
-
 def _cartpole_thetas(sc, B, rng, dev, dtype):
     theta = np.zeros((B, 8))
     theta[:, :4] = rng.uniform(-1, 1, (B, 4)) * np.array([0.3, 0.5, 0.05,
@@ -322,61 +356,71 @@ def _cartpole_thetas(sc, B, rng, dev, dtype):
     return torch.tensor(theta, dtype=dtype, device=dev)
 
 
-def phase_cartpole_kernel(sc, setups, dev):
-    """Phase 8: the L2 path against its plain version at the cartpole's
-    shapes; returns (max error, kernel ms, plain ms) of the tracking QP's
-    timed phase (the wider of the two)."""
-    from rtmpc_tpu_torch.apps.common import ADMM_SCHEDULE
-    from rtmpc_tpu_torch.ops.kernel_bench import (CP_F64_SMALL_B, CP_Y_ATOL,
-                                                  CP_Z_ATOL)
+def phase_cartpole_kernel(sc, qps, dev, bars, f64_small_bars, seed):
+    """Phases 8 and 13: the cluster path against its plain version at the
+    cartpole controllers' shapes.  ``qps``: by label, a QP's ``(specs,
+    specs64)``, each the pair (phase-1 spec, phase-2 spec), in float32 and
+    float64 on the card.  Returns by label ``(max error, kernel ms, plain
+    ms, (bound ms, bound by, torch.mm ms))`` of one timed phase at B=200."""
     from rtmpc_tpu_torch.ops.kernel_bench import time_ms as _time_ms
     from rtmpc_tpu_torch.ops.qp_cuda import (_admm_solve_cuda_plain,
                                              admm_solve_cuda, kernel_path,
                                              kernel_rows)
-    kw = dict(ADMM_SCHEDULE, solver="cuda")
-    rng = np.random.default_rng(8)
-    err, times, bounds = 0.0, {}, {}
-    for arm, setup in setups.items():
-        arrays, _ = setup.to_device(torch.float32, dev, **kw)
-        arrays64, _ = setup.to_device(torch.float64, dev, **kw)
-        n_cols = arrays.admm.Kinv.shape[0] + arrays.admm.As.shape[0]
-        print("%s QP: n_p + m_p = %d (%s path)"
-              % (arm, n_cols, kernel_path(n_cols)))
-        _require(kernel_path(n_cols) == "l2", (arm, n_cols))
-        rows = kernel_rows(arrays.admm.Kinv.shape[0],
-                           arrays.admm.As.shape[0])
+    rng = np.random.default_rng(seed)
+    out = {}
+    for label, (specs, specs64) in qps.items():
+        n_p, m_p = specs[0].Kinv.shape[0], specs[0].As.shape[0]
+        rows = kernel_rows(n_p, m_p)
+        print("%s QP: n_p + m_p = %d + %d (%s path, %d rows a cluster)"
+              % (label, n_p, m_p, kernel_path(n_p + m_p), rows))
+        _require(kernel_path(n_p + m_p) == "l2", (label, n_p, m_p))
+        err = 0.0
         for B in CP_BATCHES + (1, rows - 1, rows + 1):
             th = _cartpole_thetas(sc, B, rng, dev, torch.float32)
             err = max(err, _compare(
-                arrays, arrays64, th, th, B == 200, (CP_ITERS, CP_ITERS),
-                (CP_Z_ATOL, CP_Y_ATOL), label=arm,
-                f64_bars=None if B in CP_BATCHES else CP_F64_SMALL_B))
+                specs, specs64, th, th, B == 200, (CP_ITERS, CP_ITERS),
+                bars, label=label,
+                f64_bars=None if B in CP_BATCHES else f64_small_bars))
         th = _cartpole_thetas(sc, 200, rng, dev, torch.float32)
         t = {"plain": [], "kernel": []}
         for which in ("plain", "kernel", "kernel", "plain"):
             fn = admm_solve_cuda if which == "kernel" else \
                 _admm_solve_cuda_plain
             t[which].append(_time_ms(
-                lambda: fn(arrays.admm, th, None, CP_ITERS), reps=5))
+                lambda: fn(specs[0], th, None, CP_ITERS), reps=5))
         print("%s QP, one %d-iteration phase, B=200: kernel %s ms, plain "
-              "%s ms" % (arm, CP_ITERS, t["kernel"], t["plain"]))
-        times[arm] = (float(np.mean(t["kernel"])), float(np.mean(t["plain"])))
-        bounds[arm] = _product_yardstick(
-            "cartpole %s %d+%d" % (arm, arrays.admm.Kinv.shape[0],
-                                   arrays.admm.As.shape[0]),
-            200, arrays.admm, th, CP_ITERS, times[arm][0], dev)
-    return err, times["track"][0], times["track"][1], bounds["track"]
+              "%s ms" % (label, CP_ITERS, t["kernel"], t["plain"]))
+        ms, plain_ms = (float(np.mean(t[k])) for k in ("kernel", "plain"))
+        out[label] = (err, ms, plain_ms, _product_yardstick(
+            "cartpole %s %d+%d" % (label, n_p, m_p), 200, specs[0], th,
+            CP_ITERS, ms, dev))
+    return out
 
 
-def phase_ip_card_vs_cpu(sc, setups, dev, tube_sweep):
+def _admm_qps(setup, dev, pr=False):
+    """``{label: (specs, specs64)}`` of a controller under the apps'
+    ``--solver cuda`` schedule, for ``phase_cartpole_kernel``: its QP, or
+    with ``pr`` an extended controller's two."""
+    from rtmpc_tpu_torch.apps.common import ADMM_SCHEDULE
+    a32, a64 = (setup.to_device(dt, dev, solver="cuda", **ADMM_SCHEDULE)[0]
+                for dt in (torch.float32, torch.float64))
+    qps = {"": ((a32.admm, a32.admm2), (a64.admm, a64.admm2))}
+    if pr:
+        qps = {"normal": qps[""],
+               "packet-received": ((a32.admm_pr, a32.admm2_pr),
+                                   (a64.admm_pr, a64.admm2_pr))}
+    return qps
+
+
+def phase_ip_card_vs_cpu(sc, setups, dev, traj):
     """Phase 9: ``ip_riccati_solve`` in float64 on the card against the
-    CPU on 64 thetas from the sweep: nominal states of phase 10's sample
-    runs (the tube arm's run 5 at each loss probability, every 37th step;
+    CPU on 64 thetas from a sweep: nominal states of its sample runs
+    (``traj``, (P, T, 4): the RT-MPC arm of phase 15's float64 sweep on the
+    nonlinear plant, run 5 at each loss probability, every 37th step;
     a true plant state can leave the tightened set and make the QP
     infeasible), reference 0.5, every eighth 6 m (outside X: it
     saturates)."""
     from rtmpc_tpu_torch.ops.ip_riccati import ip_riccati_solve
-    traj = tube_sweep.sample_x_nom
     P, T = traj.shape[:2]
     theta = np.zeros((IP_B, 8))
     for i in range(IP_B):
@@ -419,26 +463,30 @@ def phase_ip_card_vs_cpu(sc, setups, dev, tube_sweep):
               "card r_prim %.3e r_dual %.3e, CPU r_prim %.3e r_dual %.3e"
               % (arm, dz, dobj, res["r_prim"], res["r_dual"],
                  res_cpu["r_prim"], res_cpu["r_dual"]))
-        for r in (res, res_cpu):
+        worst[arm] = dict(dz=dz, dobj=dobj, card=res, cpu=res_cpu)
+    for arm, w in worst.items():       # after both arms' readings are out
+        for r in (w["card"], w["cpu"]):
             _require(r["r_prim"] <= IP_R_PRIM and r["r_dual"] <= IP_R_DUAL,
                      (arm, r))
-        _require(dobj <= IP_OBJ_RTOL, (arm, dobj))
-        _require(dz <= IP_Z_ATOL, (arm, dz))
-        worst[arm] = dz
+        _require(w["dobj"] <= IP_OBJ_RTOL, (arm, w["dobj"]))
+        _require(w["dz"] <= IP_Z_ATOL, (arm, w["dz"]))
     return worst
 
 
-def phase_sweep(solver, out_json, setups):
-    """Phases 10 and 11: the app's full sweep on the card."""
+def phase_sweep(solver, out_json, setups, quick=False):
+    """Phases 10 and 11: the app's sweep on the card, at its ``--quick``
+    depth if ``quick``."""
     from rtmpc_tpu_torch.apps import results_linear
     args = results_linear.parse_args(
-        ["--device", "cuda", "--solver", solver, "--save-json", out_json])
+        ["--device", "cuda", "--solver", solver, "--save-json", out_json]
+        + (["--quick"] if quick else []))
     t0 = time.perf_counter()
     out = results_linear.run(args, (setups["tube"], setups["track"]))
-    print("sweep (%s) done in %.1f s" % (solver, time.perf_counter() - t0))
+    print("sweep (%s%s) done in %.1f s" % (solver, ", --quick" if quick
+                                            else "", time.perf_counter() - t0))
     for arm in ("tube", "track"):
         res = out[arm]
-        _require(res.tracking_error.shape == (10, 20),
+        _require(res.tracking_error.shape == ((4, 4) if quick else (10, 20)),
                  res.tracking_error.shape)
         for a in (res.sample_traj, res.sample_x_nom):
             _require(bool(np.isfinite(a).all()), (solver, arm))
@@ -447,14 +495,193 @@ def phase_sweep(solver, out_json, setups):
     return out
 
 
+def _reset_launches():
+    from rtmpc_tpu_torch.ops.qp_cuda import admm_solve_cuda
+    torch.cuda.synchronize()
+    admm_solve_cuda.launches = 0
+    for path in admm_solve_cuda.launches_by_path:
+        admm_solve_cuda.launches_by_path[path] = 0
+
+
+def _sample_tube_violation(res, arrays):
+    """max ``Hz (x_t - x_nom_t) - hz`` over a sweep's sample trajectories
+    (x_0 = 0 and the post-step states but the last)."""
+    P = res.sample_traj.shape[0]
+    xs = np.concatenate([np.zeros((P, 1, 4)), res.sample_traj[:, :-1]], 1)
+    Hz, hz = (t.double().cpu().numpy() for t in (arrays.Hz, arrays.hz))
+    return float(((xs - res.sample_x_nom) @ Hz.T - hz).max())
+
+
+def _require_sweep_finite(out, what):
+    for name, res in out["results"].items():
+        _require(res.tracking_error.shape == (10, 20), (what, name))
+        for a in (res.sample_traj, res.sample_x_nom):
+            _require(bool(np.isfinite(a).all()), (what, name))
+
+
+# kernel launches a step of each arm under --solver cuda: 2 phases a QP,
+# and one more for each QP that is certified
+LAUNCHES_A_STEP = {
+    "results_linear_extended": {"RT-MPC": 2, "Ext-RT-MPC": 4, "R-MPC": 3},
+    "results_nonlinear": {"RT-MPC": 2, "R-MPC": 3, "Ext-RT-MPC": 6}}
+MAX_ANGLE = 0.3 + 1e-3
+
+
+def phase_new_apps_cuda(setups, out_dir):
+    """Phase 14: both new apps at full size through the kernel.  Returns
+    the launches on the extended arms' shape and on the whole cluster
+    path."""
+    from rtmpc_tpu_torch.apps import results_linear_extended, results_nonlinear
+    from rtmpc_tpu_torch.ops.qp_cuda import admm_solve_cuda
+    ext_launches = l2_launches = 0
+    for mod, extra in ((results_linear_extended, []),
+                       (results_nonlinear, ["--extended"])):
+        app = mod.__name__.rsplit(".", 1)[1]
+        args = mod.parse_args(
+            ["--device", "cuda", "--solver", "cuda", "--save-json",
+             os.path.join(out_dir, app + "_cuda.json")] + extra)
+        _reset_launches()          # the main path's run: counts from 0
+        t0 = time.perf_counter()
+        out = mod.run(args, setups)
+        torch.cuda.synchronize()
+        l2 = admm_solve_cuda.launches_by_path["l2"]
+        T = out["T"]
+        got = {arm: c["kernel_launches"] for arm, c in out["counts"].items()}
+        print("%s --solver cuda done in %.1f s; kernel launches %s (l2 path "
+              "%d, smem path %d); the app's checks %s"
+              % (app, time.perf_counter() - t0, got, l2,
+                 admm_solve_cuda.launches_by_path["smem"],
+                 "pass" if out["ok"] else "FAIL (printed, not gated)"))
+        want = {arm: n * T for arm, n in LAUNCHES_A_STEP[app].items()}
+        _require(got == want, (app, got, want))
+        _require(l2 == sum(want.values()), (app, l2))
+        _require_sweep_finite(out, app)
+        res = out["results"]
+        for arm in ("RT-MPC", "Ext-RT-MPC"):
+            _require(bool(res[arm].feasible.all()), (app, arm, "feasible"))
+            viol = _sample_tube_violation(res[arm], out["arrays"][arm])
+            print("%s %s: tube invariant on the sample trajectories, max "
+                  "Hz(x - x_nom) - hz = %.3e" % (app, arm, viol))
+            if arm == "RT-MPC":
+                _require(viol <= TUBE_TOL, (app, arm, viol))
+        if app == "results_nonlinear":
+            _require(out["max_angle"] <= MAX_ANGLE, out["max_angle"])
+        ext_launches += got["Ext-RT-MPC"]
+        l2_launches += l2
+    return ext_launches, l2_launches
+
+
+# Phase 15's arms: app module, arm label, the controller it needs
+F64_ARMS = (("results_linear_extended", "Ext-RT-MPC", "ext"),
+            ("results_nonlinear", "RT-MPC", "tube"))
+
+
+def phase_new_f64(app, arm, setups, out_dir):
+    """One arm of phase 15: runs it at full size in float64 ``ip_riccati``
+    and fails unless it is feasible everywhere and its rows pass the app's
+    comparison with the JAX package's float64 rows.  Returns the arm's
+    sweep."""
+    mod = importlib.import_module("rtmpc_tpu_torch.apps." + app)
+    args = mod.parse_args(
+        ["--device", "cuda", "--save-json",
+         os.path.join(out_dir, "%s_%s_ip_riccati.json" % (app, arm))])
+    t0 = time.perf_counter()
+    out = mod.run(args, setups, arms=(arm,))
+    print("%s, arm %s, float64 ip_riccati done in %.1f s (held to %s)"
+          % (app, arm, time.perf_counter() - t0, os.path.basename(mod.TRUTH)))
+    _require(out["ok"] and out["compared"], (app, "checks"))
+    res = out["results"][arm]
+    _require(bool(res.feasible.all()), (app, arm, "feasible"))
+    _require_sweep_finite(out, app)
+    viol = _sample_tube_violation(res, out["arrays"][arm])
+    print("%s: max Hz(x - x_nom) - hz on the sample trajectories %.3e"
+          % (arm, viol))
+    if app == "results_linear_extended":
+        with open(mod.TRUTH) as f:
+            e_tube = json.load(f)["rows"][-1]["rms_RT-MPC"]
+        e_ext = out["rows"][-1]["rms_Ext-RT-MPC"]
+        print("extended arm at p=0.9: %.5f against 1.5 x %.5f (the "
+              "reference's RT-MPC there)" % (e_ext, e_tube))
+        _require(e_ext < 1.5 * e_tube, (e_ext, e_tube))
+    else:
+        _require(viol <= TUBE_TOL, (app, arm, viol))
+        _require(out["max_angle"] <= MAX_ANGLE, out["max_angle"])
+    return res
+
+
+def _f64_arm_worker(app, arm, controller, out_dir):
+    """A worker process of phase 15: sets the arm's controller up and runs
+    ``phase_new_f64``.  Returns what it printed, the arm's sampled nominal
+    states and, if it failed, the traceback."""
+    sys.meta_path.insert(0, _NoJax())
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    printed, x_nom, failure = io.StringIO(), None, None
+    with contextlib.redirect_stdout(printed):
+        try:
+            from rtmpc_tpu_torch.apps.common import cartpole_controllers
+            from rtmpc_tpu_torch.apps.scenarios import cartpole_scenario
+            setups = cartpole_controllers(cartpole_scenario(), (controller,))
+            x_nom = phase_new_f64(app, arm, setups, out_dir).sample_x_nom
+            _require("jax" not in sys.modules)
+        except Exception:
+            failure = traceback.format_exc()
+    return printed.getvalue(), x_nom, failure
+
+
+def phase_new_f64_side_by_side(out_dir):
+    """Phase 15: its two arms, each in a worker process (the interior point
+    is bound by one host thread's launches and leaves the card idle nine
+    tenths of the time; an arm's printed time is its time beside the
+    other).  Returns the last arm's sampled nominal states."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            len(F64_ARMS), multiprocessing.get_context("spawn")) as pool:
+        done = list(pool.map(_f64_arm_worker, *zip(*F64_ARMS),
+                             [out_dir] * len(F64_ARMS)))
+    for (app, arm, _), (printed, _, failure) in zip(F64_ARMS, done):
+        print("--- phase 15, %s %s ---\n%s"
+              % (app, arm, printed.rstrip() + "\n" + (failure or "")))
+    print("phase 15 took %.1f s, both arms side by side"
+          % (time.perf_counter() - t0))
+    _require(not any(failure for _, _, failure in done), "phase 15")
+    return done[-1][1]
+
+
+def phase_plant(sc, dev):
+    """Phase 16: the nonlinear plant on the card against the CPU."""
+    from rtmpc_tpu_torch.models.plants import cartpole_zoh_step
+    rng = np.random.default_rng(16)
+    x = torch.tensor(rng.uniform(-1, 1, (4096, 4)) * [2.0, 3.0, 0.6, 2.5])
+    f = torch.tensor(rng.uniform(-10, 10, 4096))
+    worst = 0.0
+    for method in ("semi_implicit_euler", "rk4"):
+        cpu = cartpole_zoh_step(sc.params, x, f, sc.Th, sc.physics_substeps,
+                                method=method)
+        card = cartpole_zoh_step(sc.params, x.to(dev), f.to(dev), sc.Th,
+                                 sc.physics_substeps, method=method)
+        worst = max(worst, _max_err(card, cpu))
+    print("cartpole_zoh_step, card vs CPU, float64, B=4096: max |dx| %.3e"
+          % worst)
+    _require(worst <= 1e-12, worst)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; this smoke run needs a GPU")
+    t_start = time.perf_counter()
     sys.meta_path.insert(0, _NoJax())
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    from rtmpc_tpu_torch.apps.common import cartpole_controllers
+    from rtmpc_tpu_torch.apps.scenarios import cartpole_scenario
     from rtmpc_tpu_torch.models import flagship_setup
+    from rtmpc_tpu_torch.ops.kernel_bench import (
+        CP_F64_SMALL_B, CP_Y_ATOL, CP_Z_ATOL, EXT_F64_SMALL_B, EXT_Y_ATOL,
+        EXT_Z_ATOL, WIDTH_SHAPES, check_shapes)
     from rtmpc_tpu_torch.ops.kernel_bench import card as _card
-    from rtmpc_tpu_torch.ops.qp_cuda import build_kernel
+    from rtmpc_tpu_torch.ops.qp_cuda import admm_solve_cuda, build_kernel
 
     dev = torch.device("cuda", 0)
     card = _card()
@@ -477,34 +704,43 @@ def main():
     print("setup %.1f s: n_p=%d m_p=%d rho=%g"
           % (time.perf_counter() - t0, arrays.admm.Kinv.shape[0],
              arrays.admm.As.shape[0], arrays.admm.rho.min().item()))
+    sc = cartpole_scenario()
+    kernel = dict(name="admm_solve_cuda", route="cuda",
+                  source="rtmpc_tpu_torch/csrc/admm_kernel.cu",
+                  replaces="rtmpc_tpu/ops/qp_pallas.py:106")
+    kernels = []
 
+    def record(name, launches, err, ms, plain_ms, bound):
+        # library_ms: no single PyTorch call computes an ADMM phase; the
+        # time of its products alone in torch.mm is library_product_ms
+        kernels.append(dict(
+            kernel, name=name, launches=launches, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+            library_ms=None, library_product_ms=bound[2]))
+
+    _reset_launches()
     err, ms, plain_ms, bound = phase_kernel_vs_plain(arrays, arrays64, dev)
     # phase 5b: random QPs at the edges of the two paths' widths
-    from rtmpc_tpu_torch.ops.kernel_bench import WIDTH_SHAPES, check_shapes
     check_shapes(WIDTH_SHAPES, dev)
     launches, _ = phase_full_loop(arrays, cfg, dev)
     phase_parity(setup, arrays, cfg, dev)
+    record("admm_solve_cuda (admm_kernel, n_p+m_p <= 192)", launches, err,
+           ms, plain_ms, bound)
 
     # the Fig. 3a slice
-    from rtmpc_tpu_torch.ops.qp_cuda import admm_solve_cuda
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "build", "chip_smoke")
-    os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
-    sc, setups = _cartpole_setups()
+    setups = cartpole_controllers(sc, ("tube", "track"))
     print("cartpole setup %.1f s" % (time.perf_counter() - t0))
-    err_l2, ms_l2, plain_ms_l2, bound_l2 = phase_cartpole_kernel(
-        sc, setups, dev)
+    by_arm = phase_cartpole_kernel(
+        sc, {arm: _admm_qps(st, dev)[""] for arm, st in setups.items()},
+        dev, (CP_Z_ATOL, CP_Y_ATOL), CP_F64_SMALL_B, seed=8)
     sweep = phase_sweep(
-        "ip_riccati", os.path.join(out_dir, "results_linear_ip_riccati.json"),
-        setups)
-    _require(sweep["ok"] and sweep["compared"], "phase 10 checks")
-    phase_ip_card_vs_cpu(sc, setups, dev, sweep["tube"])
-    # phase 11: the main path of the L2 path; counts from 0
-    torch.cuda.synchronize()
-    admm_solve_cuda.launches = 0
-    for path in admm_solve_cuda.launches_by_path:
-        admm_solve_cuda.launches_by_path[path] = 0
+        "ip_riccati",
+        os.path.join(out_dir, "results_linear_ip_riccati.json"), setups,
+        quick=True)
+    _require(sweep["ok"], "phase 10 checks")
+    # phase 11: the main path of the cluster path; counts from 0
+    _reset_launches()
     out = phase_sweep("cuda", os.path.join(out_dir,
                                            "results_linear_cuda.json"),
                       setups)
@@ -518,33 +754,38 @@ def main():
     _require(counts["tube"]["kernel_launches"] == 2 * T_sweep, counts)
     _require(counts["track"]["kernel_launches"] == 3 * T_sweep, counts)
     _require(launches_l2 == 5 * T_sweep, launches_l2)
-    arrays_tube = out["arrays_tube"]
-    tube = out["tube"]
-    xs = np.concatenate([np.zeros((10, 1, 4)), tube.sample_traj[:, :-1]], 1)
-    viol = float(((xs - tube.sample_x_nom) @ arrays_tube.Hz.double().cpu()
-                  .numpy().T - arrays_tube.hz.double().cpu().numpy()).max())
-    print("tube invariant on the sample trajectories: max Hz(x - x_nom) - "
-          "hz = %.3e (Z has %d rows)" % (viol, setups["tube"].Z.nrows))
+    viol = _sample_tube_violation(out["tube"], out["arrays_tube"])
+    print("tube invariant on the sample trajectories: max Hz(x - x_nom) "
+          "- hz = %.3e (Z has %d rows)" % (viol, setups["tube"].Z.nrows))
     _require(viol <= TUBE_TOL, viol)
+    record("admm_solve_cuda (admm_kernel_cluster, 192 < n_p+m_p <= 1024: "
+           "112+840)", launches_l2, max(v[0] for v in by_arm.values()),
+           *by_arm["track"][1:])
+
+    # the extended arm and the nonlinear plant
+    t0 = time.perf_counter()
+    fig3a = dict(setups)
+    setups.update(cartpole_controllers(sc, ("ext",)))
+    ext = setups["ext"]
+    print("extended cartpole setup %.1f s: Z %d rows, QP rows %d and %d "
+          "(packet-received)" % (time.perf_counter() - t0, ext.Z.nrows,
+                                 ext.template.m, ext.template_pr.m))
+    by_qp = phase_cartpole_kernel(sc, _admm_qps(ext, dev, pr=True), dev,
+                                  (EXT_Z_ATOL, EXT_Y_ATOL), EXT_F64_SMALL_B,
+                                  seed=13)
+    ext_launches, _ = phase_new_apps_cuda(setups, out_dir)
+    record("admm_solve_cuda (admm_kernel_cluster, 1024 < n_p+m_p <= 2048: "
+           "112+1648)", ext_launches, max(v[0] for v in by_qp.values()),
+           *by_qp["normal"][1:])
+    x_nom = phase_new_f64_side_by_side(out_dir)
+    # phase 9, on the nominal states of the last arm (RT-MPC, float64)
+    phase_ip_card_vs_cpu(sc, fig3a, dev, x_nom)
+    phase_plant(sc, dev)
     _require("jax" not in sys.modules)
 
+    print("chip_smoke.py took %.1f s" % (time.perf_counter() - t_start))
     print(card)
-    kernel = dict(name="admm_solve_cuda", route="cuda",
-                  source="rtmpc_tpu_torch/csrc/admm_kernel.cu",
-                  replaces="rtmpc_tpu/ops/qp_pallas.py:106")
-    # library_ms: no single PyTorch call computes an ADMM phase; the time of
-    # its products alone in torch.mm is library_product_ms
-    print(json.dumps({"kernels": [
-        dict(kernel, name="admm_solve_cuda (admm_kernel, n_p+m_p <= 192)",
-             launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-             bound_ms=bound[0], bound_by=bound[1], library_ms=None,
-             library_product_ms=bound[2]),
-        dict(kernel, name="admm_solve_cuda (admm_kernel_cluster, n_p+m_p "
-             "<= 2048)", launches=launches_l2, max_abs_err=err_l2, ms=ms_l2,
-             plain_ms=plain_ms_l2, bound_ms=bound_l2[0],
-             bound_by=bound_l2[1], library_ms=None,
-             library_product_ms=bound_l2[2]),
-    ]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

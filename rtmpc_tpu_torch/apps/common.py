@@ -8,9 +8,17 @@ import importlib.util
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
+
+from ..models import (setup_extended_tube_tracking, setup_tracking,
+                      setup_tube_tracking)
+from ..ops.ip_riccati import ip_riccati_solve
+from ..ops.qp_cuda import admm_solve_cuda
+from ..parallel.mc import draw_sweep, load_draws, run_mc_sweep
+from .scenarios import cartpole_scenario
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -19,6 +27,23 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 # at ``admm_iters=400``), without polish: 200 + 200 iterations.
 ADMM_SCHEDULE = dict(iters=200, iters2=200, alpha=1.8, rho2_scale=0.2)
 IP_ITERS = 30
+
+DATA_DIR = os.path.join(REPO_ROOT, "rtmpc_tpu_torch", "data")
+FULL_PROBS = [0.0, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9]
+SEED0_SOURCE = "the JAX app's seed-0 draws (committed file)"
+# The extended and nonlinear JAX apps draw from the seed's key itself, the
+# linear app from its first split: other bits, so a file of their own.
+DRAWS_EXT_SEED0 = os.path.join(DATA_DIR, "results_extended_seed0.npz")
+EXT_QUICK = (60, 3, [0.0, 0.4, 0.8])     # T, n_mc, probs under --quick
+# Per-p mean RMS against the JAX package's float64 rows on the same draws.
+# A float64 ``ip_riccati`` run is the same algorithm on the same draws and
+# is gated at ROWS_RTOL: on an NVIDIA H100 80GB HBM3 the worst relative
+# difference of any arm of either app read 1.2e-6 (R-MPC on the nonlinear
+# plant; the tube arms 2e-8 to 5e-7), so a float32 run, another iteration
+# cap or a wrong QP on a few rollouts fails it.  Other solvers' rows are
+# printed against ROWS_RTOL_PRINTED and not gated.
+ROWS_RTOL = 1e-4
+ROWS_RTOL_PRINTED = 0.02
 
 
 def make_parser(description: str) -> argparse.ArgumentParser:
@@ -38,6 +63,23 @@ def make_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--quick", action="store_true",
                    help="shrink the workload for smoke runs")
     p.add_argument("--seed", type=int, default=0)
+    return p
+
+
+def add_sweep_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The flags every Monte-Carlo sweep app takes."""
+    p.add_argument("--n-mc", type=int, default=20)
+    p.add_argument("--draws", default=None,
+                   help="npz of the sweep's draws (theta, gamma, u); "
+                        "default: the committed seed-0 draws where they fit, "
+                        "else the port's generator at --seed")
+    p.add_argument("--checkpoint", default=None,
+                   help="npz path for per-chunk sweep checkpointing; "
+                        "re-run with the same path to resume")
+    p.add_argument("--n-chunks", type=int, default=1,
+                   help="sweep chunks along the probability axis")
+    p.add_argument("--save-json", default=None,
+                   help="write the per-p rows and the solver config here")
     return p
 
 
@@ -100,3 +142,195 @@ def load_compare_linear():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.compare_linear
+
+
+def sweep_draws(args, dev, T, n_mc, probs, nx, seed0_file):
+    """The sweep's draws and a line saying where they came from:
+    ``--draws``, else at ``--seed 0`` the committed ``seed0_file`` (the
+    draws the JAX app makes at that seed) where its shape fits, else the
+    port's own generator."""
+    shape = (len(probs) * n_mc, T)
+    if args.draws:
+        return load_draws(args.draws, dev), f"file {args.draws}"
+    if args.seed == 0 and os.path.exists(seed0_file):
+        d = load_draws(seed0_file, dev)
+        if tuple(d.theta.shape) == shape:
+            return d, SEED0_SOURCE
+    g = torch.Generator(device="cpu").manual_seed(args.seed)
+    d = draw_sweep(g, T, n_mc, probs, nx)
+    return (type(d)(*(a.to(dev) for a in d)),
+            f"the port's generator at seed {args.seed} (not the JAX app's "
+            "draws)")
+
+
+def cartpole_controllers(sc, names) -> dict:
+    """The Results apps' controllers on the cartpole scenario ``sc``, by
+    name: ``"tube"`` (RT-MPC: tube tracking, fixed initial state), ``"ext"``
+    (Ext-RT-MPC: extended tube tracking, initial state in the tube) and
+    ``"track"`` (R-MPC: tracking, no tube); all with ``rpi_method=1``
+    (eq. 8d)."""
+    make = {
+        "tube": lambda: setup_tube_tracking(
+            sc.A, sc.B, sc.Q, sc.R, sc.N, sc.X, sc.U, sc.W,
+            fixed_initial_state=True, rpi_method=1),
+        "ext": lambda: setup_extended_tube_tracking(
+            sc.A, sc.B, sc.Q, sc.R, sc.N, sc.X, sc.U, sc.W,
+            fixed_initial_state=False, rpi_method=1),
+        "track": lambda: setup_tracking(sc.A, sc.B, sc.Q, sc.R, sc.N, sc.X,
+                                        sc.U),
+    }
+    return {name: make[name]() for name in names}
+
+
+def run_arms(args, arms, **sweep) -> tuple:
+    """Run each arm ``(name, arrays, cfg, actuator_mode, infeas_mode)`` as
+    one ``run_mc_sweep(**sweep)`` and print its wall time; returns
+    ``(results, counts)`` by arm name, the counts being the interior
+    point's iterations and calls and the kernel's launches in that arm."""
+    results, counts = {}, {}
+    for name, arrays, cfg, mode, infeas in arms:
+        ip_riccati_solve.iterations = ip_riccati_solve.calls = 0
+        admm_solve_cuda.launches = 0
+        results[name] = res = run_mc_sweep(
+            arrays, cfg, actuator_mode=mode, infeas_mode=infeas,
+            checkpoint_path=(f"{args.checkpoint}.{name}" if args.checkpoint
+                             else None),
+            n_chunks=args.n_chunks, **sweep)
+        counts[name] = c = dict(ip_iterations=ip_riccati_solve.iterations,
+                                ip_calls=ip_riccati_solve.calls,
+                                kernel_launches=admm_solve_cuda.launches)
+        T, n_rollouts = sweep["T"], len(sweep["loss_probs"]) * sweep["n_mc"]
+        line = (f"wall time {name}: {res.wall_time_s:.2f}s for {T} steps of "
+                f"{n_rollouts} rollouts, {1e3 * res.wall_time_s / T:.1f} ms "
+                f"a step, {1e3 * res.wall_time_s / (n_rollouts * T):.4f} "
+                f"ms a solve amortized")
+        if c["ip_calls"]:
+            line += (f", {c['ip_iterations'] / c['ip_calls']:.2f} IP "
+                     f"iterations a step")
+        if c["kernel_launches"]:
+            line += f", {c['kernel_launches']} kernel launches"
+        print(line)
+    return results, counts
+
+
+def arm_rows(results: dict, probs) -> list:
+    """The JAX extended and nonlinear apps' rows: per loss probability the
+    mean RMS tracking error (``rms_<arm>``, NaN runs left out) and the
+    number of stopped runs (``infeasible_<arm>``) of every arm; prints the
+    table."""
+    print("  p   " + "".join(f"{n:>14s}" for n in results))
+    rows = []
+    for i, p in enumerate(probs):
+        row = {"p": float(p)}
+        for name, res in results.items():
+            row[f"rms_{name}"] = float(np.nanmean(res.tracking_error[i]))
+            row[f"infeasible_{name}"] = int(res.infeasible_counts[i])
+        rows.append(row)
+        print(f"  {p:.1f} " + "".join(f"{row[f'rms_{n}']:14.5f}"
+                                      for n in results))
+    return rows
+
+
+def compare_rows(rows: list, truth_path: str, rtol: float) -> tuple:
+    """Hold ``rows`` to the reference rows in ``truth_path`` (a JSON of the
+    same app): every ``rms_<arm>`` of ``rows`` within ``rtol`` (relative)
+    of the reference's at the same ``p``, every ``infeasible_<arm>`` equal.
+    Returns ``(ok, message)``."""
+    with open(truth_path) as f:
+        truth = {r["p"]: r for r in json.load(f)["rows"]}
+    worst, lines, ok = {}, [], True
+    for row in rows:
+        ref = truth.get(row["p"])
+        if ref is None:
+            return False, f"no reference row at p={row['p']}"
+        for k, v in row.items():
+            if k.startswith("rms_"):
+                rel = abs(v - ref[k]) / abs(ref[k])
+                worst[k] = max(worst.get(k, 0.0), rel)
+                ok &= bool(rel <= rtol)          # a NaN fails
+            elif k.startswith("infeasible_") and v != ref[k]:
+                ok = False
+                lines.append(f"  p={row['p']:.1f} {k}: {v} vs {ref[k]}")
+    lines = [f"  {k}: worst per-p relative difference {v:.3e} (bar {rtol})"
+             for k, v in worst.items()] + lines
+    return ok, "\n".join(lines)
+
+
+def run_labelled_sweep(args, app: str, arms, *, setups=None, plant_step=None,
+                       noise: bool = True, truth=None, head=None) -> dict:
+    """The sweep of the extended and nonlinear Results apps.
+
+    ``arms``: ``(label, controller, actuator_mode, infeas_mode)`` with
+    ``controller`` a name of ``cartpole_controllers``; ``setups``: those
+    controllers already set up, by name (a caller that runs several sweeps
+    sets them up once).  ``noise=False`` draws no process noise (a
+    zero-width disturbance box).  ``truth``: the JAX app's float64 rows;
+    with the committed draws at full size the rows are compared with them
+    (``compare_rows``): at ``ROWS_RTOL`` as a gate for a float64
+    ``ip_riccati`` run, at ``ROWS_RTOL_PRINTED`` and printed only
+    otherwise.  ``head``: app keys
+    that go first into the JSON payload.
+
+    Returns ``ok`` (the comparison's verdict where it gates, else True),
+    ``results``, ``counts`` and ``arrays`` by arm label, ``rows``,
+    ``payload``, ``compared`` (None if not compared) and the steps ``T``."""
+    dev = resolve(args)
+    dtype = getattr(torch, args.dtype)
+    sc = cartpole_scenario()
+    T, n_mc, probs = EXT_QUICK if args.quick else (sc.T, args.n_mc,
+                                                   FULL_PROBS)
+    print(f"device {device_name(dev)}, solver {args.solver}, {args.dtype}")
+    t0 = time.perf_counter()
+    names = [a[1] for a in arms]
+    if setups is None:
+        setups = cartpole_controllers(sc, names)
+    kw = solver_kwargs(args)
+    frozen = {label: setups[name].to_device(dtype, dev, **kw)
+              for label, name, _, _ in arms}
+    print(f"setups done in {time.perf_counter() - t0:.1f}s (QP rows "
+          + ", ".join(f"{label} {setups[name].template.m}"
+                      for label, name, _, _ in arms) + ")")
+
+    refs = np.zeros((T, 4))
+    refs[:, 0] = sc.ref_value
+    draws, source = sweep_draws(args, dev, T, n_mc, probs, 4,
+                                DRAWS_EXT_SEED0)
+    print(f"draws: {source}")
+    print(f"running sweep: {len(probs)} probs x {n_mc} runs x {T} steps, "
+          f"{len(arms)} arms, {args.n_chunks} chunk(s)")
+    w_lo, w_hi = (sc.w_lo, sc.w_hi) if noise else (np.zeros(4), np.zeros(4))
+    results, counts = run_arms(
+        args, [(label, *frozen[label], mode, infeas)
+               for label, _, mode, infeas in arms],
+        T=T, n_mc=n_mc, loss_probs=probs, refs=refs, x0=sc.x0, w_lo=w_lo,
+        w_hi=w_hi, draws=draws, plant_step=plant_step)
+
+    print("\nMean RMS tracking error per loss probability:")
+    rows = arm_rows(results, probs)
+    print("stopped runs: " + ", ".join(
+        f"{n} {r.infeasible_counts.tolist()}" for n, r in results.items()))
+    payload = {
+        **(head or {}), "app": app, "solver": args.solver,
+        "dtype": args.dtype, "backend": dev.type, "device": device_name(dev),
+        "n_mc": n_mc, "T": T, "seed": args.seed, "draws": source,
+        "rows": rows,
+        "wall_time_s": {n: r.wall_time_s for n, r in results.items()},
+        "counts": counts}
+    save_summary_json(args.save_json, payload)
+
+    ok, compared = True, None
+    if (truth and source == SEED0_SOURCE and not args.quick and n_mc == 20):
+        gated = args.solver == "ip_riccati" and args.dtype == "float64"
+        rtol = ROWS_RTOL if gated else ROWS_RTOL_PRINTED
+        compared, msg = compare_rows(rows, truth, rtol)
+        print(f"rows against {os.path.basename(truth)}:\n{msg}")
+        if gated:
+            ok = check(f"rows match the JAX package's float64 rows "
+                       f"({rtol:g} relative, per-p mean)", compared)
+        else:
+            print(f"[info] the comparison {'passes' if compared else 'fails'}"
+                  " (not gated: the ADMM does not reach trajectory parity "
+                  "on the cartpole)")
+    return dict(ok=ok, results=results, counts=counts, rows=rows,
+                payload=payload, compared=compared, T=T,
+                arrays={label: a for label, (a, _) in frozen.items()})

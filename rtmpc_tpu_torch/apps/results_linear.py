@@ -36,53 +36,19 @@ import time
 import numpy as np
 import torch
 
-from ..models import setup_tracking, setup_tube_tracking
-from ..ops.ip_riccati import ip_riccati_solve
-from ..ops.qp_cuda import admm_solve_cuda
-from ..parallel.mc import draw_sweep, load_draws, run_mc_sweep
-from .common import (REPO_ROOT, check, device_name, load_compare_linear,
-                     make_parser, resolve, save_summary_json, solver_kwargs)
+from .common import (DATA_DIR, FULL_PROBS, REPO_ROOT, SEED0_SOURCE,
+                     add_sweep_args, cartpole_controllers, check,
+                     device_name, load_compare_linear, make_parser, resolve,
+                     run_arms, save_summary_json, solver_kwargs, sweep_draws)
 from .scenarios import cartpole_scenario
 
-DRAWS_SEED0 = os.path.join(REPO_ROOT, "rtmpc_tpu_torch", "data",
-                           "results_linear_seed0.npz")
+DRAWS_SEED0 = os.path.join(DATA_DIR, "results_linear_seed0.npz")
 TRUTH = os.path.join(REPO_ROOT, "RESULTS_LINEAR_CPU_F64_r05.json")
-FULL_PROBS = [0.0, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9]
 QUICK_PROBS = [0.0, 0.3, 0.6, 0.9]
-SEED0_SOURCE = "the JAX app's seed-0 draws (committed file)"
 
 
 def parse_args(argv=None):
-    p = make_parser(__doc__)
-    p.add_argument("--n-mc", type=int, default=20)
-    p.add_argument("--draws", default=None,
-                   help="npz of the sweep's draws (theta, gamma, u); "
-                        "default: the committed seed-0 draws where they fit, "
-                        "else the port's generator at --seed")
-    p.add_argument("--checkpoint", default=None,
-                   help="npz path for per-chunk sweep checkpointing; "
-                        "re-run with the same path to resume")
-    p.add_argument("--n-chunks", type=int, default=1,
-                   help="sweep chunks along the probability axis")
-    p.add_argument("--save-json", default=None,
-                   help="write the per-p rows and the solver config here")
-    return p.parse_args(argv)
-
-
-def _draws(args, dev, T, n_mc, probs, nx):
-    """The sweep's draws and a line saying where they came from."""
-    shape = (len(probs) * n_mc, T)
-    if args.draws:
-        return load_draws(args.draws, dev), f"file {args.draws}"
-    if args.seed == 0 and os.path.exists(DRAWS_SEED0):
-        d = load_draws(DRAWS_SEED0, dev)
-        if tuple(d.theta.shape) == shape:
-            return d, SEED0_SOURCE
-    g = torch.Generator(device="cpu").manual_seed(args.seed)
-    d = draw_sweep(g, T, n_mc, probs, nx)
-    return (type(d)(*(a.to(dev) for a in d)),
-            f"the port's generator at seed {args.seed} (not the JAX app's "
-            "draws)")
+    return add_sweep_args(make_parser(__doc__)).parse_args(argv)
 
 
 def run(args, setups=None) -> dict:
@@ -103,10 +69,7 @@ def run(args, setups=None) -> dict:
           "controllers...")
     t0 = time.perf_counter()
     if setups is None:
-        setups = (setup_tube_tracking(sc.A, sc.B, sc.Q, sc.R, sc.N, sc.X,
-                                      sc.U, sc.W, fixed_initial_state=True,
-                                      rpi_method=1),
-                  setup_tracking(sc.A, sc.B, sc.Q, sc.R, sc.N, sc.X, sc.U))
+        setups = cartpole_controllers(sc, ("tube", "track")).values()
     tube, track = setups
     kw = solver_kwargs(args)
     arrays_tube, cfg_tube = tube.to_device(dtype, dev, **kw)
@@ -116,45 +79,19 @@ def run(args, setups=None) -> dict:
 
     refs = np.zeros((T, 4))
     refs[:, 0] = sc.ref_value
-    draws, source = _draws(args, dev, T, n_mc, probs, 4)
+    draws, source = sweep_draws(args, dev, T, n_mc, probs, 4, DRAWS_SEED0)
     from_jax = source == SEED0_SOURCE
     print(f"draws: {source}")
     print(f"running sweep: {len(probs)} probs x {n_mc} runs x {T} steps, "
           f"2 arms, {args.n_chunks} chunk(s)")
 
-    def ckpt(arm):
-        return f"{args.checkpoint}.{arm}" if args.checkpoint else None
-
-    counts = {}
-    results = {}
-    for arm, arrays, cfg, mode, infeas in (
-            ("tube", arrays_tube, cfg_tube, "consistent", None),
-            ("track", arrays_track, cfg_track, "smart", "certificate")):
-        ip_riccati_solve.iterations = ip_riccati_solve.calls = 0
-        admm_solve_cuda.launches = 0
-        results[arm] = run_mc_sweep(
-            arrays, cfg, T=T, n_mc=n_mc, loss_probs=probs, refs=refs,
-            x0=sc.x0, w_lo=sc.w_lo, w_hi=sc.w_hi, draws=draws,
-            actuator_mode=mode, infeas_mode=infeas,
-            checkpoint_path=ckpt(arm), n_chunks=args.n_chunks)
-        counts[arm] = dict(ip_iterations=ip_riccati_solve.iterations,
-                           ip_calls=ip_riccati_solve.calls,
-                           kernel_launches=admm_solve_cuda.launches)
+    results, counts = run_arms(
+        args,
+        (("tube", arrays_tube, cfg_tube, "consistent", None),
+         ("track", arrays_track, cfg_track, "smart", "certificate")),
+        T=T, n_mc=n_mc, loss_probs=probs, refs=refs, x0=sc.x0, w_lo=sc.w_lo,
+        w_hi=sc.w_hi, draws=draws)
     res_tube, res_track = results["tube"], results["track"]
-
-    n_rollouts = len(probs) * n_mc
-    for arm, res in results.items():
-        c = counts[arm]
-        line = (f"wall time {arm}: {res.wall_time_s:.2f}s for {T} steps of "
-                f"{n_rollouts} rollouts, {1e3 * res.wall_time_s / T:.1f} ms "
-                f"a step, {1e3 * res.wall_time_s / (n_rollouts * T):.4f} "
-                f"ms a solve amortized")
-        if c["ip_calls"]:
-            line += (f", {c['ip_iterations'] / c['ip_calls']:.2f} IP "
-                     f"iterations a step")
-        if c["kernel_launches"]:
-            line += f", {c['kernel_launches']} kernel launches"
-        print(line)
 
     print("\nTracking-error summary (mean RMS per loss probability):")
     print("  p     RT-MPC (tube)   R-MPC (track)   track infeasible")

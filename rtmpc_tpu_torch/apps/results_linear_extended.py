@@ -1,0 +1,78 @@
+"""Extended-MPC 3-arm comparison on the linearized cartpole (counterpart
+of ``rtmpc_tpu/apps/results_linear_extended.py``, paper Section IV.F).
+
+    python3 -m rtmpc_tpu_torch.apps.results_linear_extended --device cuda \\
+        [--solver ip_riccati|cuda|admm] [--dtype float64] [--n-mc 20] \\
+        [--quick] [--seed 0] [--draws PATH] [--checkpoint PATH] \\
+        [--n-chunks 1] [--save-json PATH]
+
+Adds the ExtendedTubeTrackingMPC arm (two QPs selected by the previous
+step's gamma, robust estimator, consistent actuator in extended mode) to
+the RT-MPC / R-MPC sweep of ``results_linear``: three arms over loss
+probabilities 0..0.9, n_mc runs of T=250 steps each, every arm one batched
+rollout of all its runs.  Prints the mean RMS tracking error per loss
+probability and arm, the wall time of each arm, and runs the JAX app's two
+checks.  Writes no figures and no solve-time histogram (the JSON has no
+``solve_time_stats``).
+
+The draws: at ``--seed 0`` and the full size, the ones the JAX app feeds
+all three arms, committed as
+``rtmpc_tpu_torch/data/results_extended_seed0.npz`` (written by ``python
+tests/test_torch_results_ext.py``); otherwise the port's own generator.
+With those draws a float64 ``ip_riccati`` run is held to the JAX
+package's float64 rows, ``RESULTS_LINEAR_EXT_CPU_F64_JAX.json``, at 1e-4
+(relative) per loss probability and arm (``common.ROWS_RTOL``).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from .common import (REPO_ROOT, add_sweep_args, check, make_parser,
+                     run_labelled_sweep)
+
+TRUTH = os.path.join(REPO_ROOT, "RESULTS_LINEAR_EXT_CPU_F64_JAX.json")
+ARMS = (("RT-MPC", "tube", "consistent", None),
+        ("Ext-RT-MPC", "ext", "consistent", None),
+        ("R-MPC", "track", "smart", "certificate"))
+
+
+def parse_args(argv=None):
+    return add_sweep_args(make_parser(__doc__)).parse_args(argv)
+
+
+def run(args, setups=None, arms=None) -> dict:
+    """Run the three arms, or those of them whose labels ``arms`` names
+    (a check then runs on the arms it has); ``setups``: the controllers
+    ``tube``, ``ext`` and ``track`` of ``common.cartpole_controllers``
+    already set up.  Returns ``run_labelled_sweep``'s dict with ``ok`` the
+    app's verdict."""
+    out = run_labelled_sweep(
+        args, "results_linear_extended",
+        [a for a in ARMS if arms is None or a[0] in arms], setups=setups,
+        truth=TRUTH)
+    results = out["results"]
+    tube_arms = [n for n in ("RT-MPC", "Ext-RT-MPC") if n in results]
+    ok = out["ok"]
+    ok &= check("both tube arms always feasible",
+                all(bool(results[n].feasible.all()) for n in tube_arms),
+                "" if len(tube_arms) == 2 else f"ran {tube_arms}")
+    if len(tube_arms) == 2:
+        # Section IV.F claim: the extended MPC improves (or at least does
+        # not worsen) tracking at high loss vs the basic tube MPC
+        e_t = float(np.nanmean(results["RT-MPC"].tracking_error[-1]))
+        e_e = float(np.nanmean(results["Ext-RT-MPC"].tracking_error[-1]))
+        ok &= check("extended arm comparable-or-better at highest loss",
+                    e_e < 1.5 * e_t, f"ext {e_e:.5f} vs tube {e_t:.5f}")
+    out["ok"] = bool(ok)
+    return out
+
+
+def main(argv=None) -> int:
+    return 0 if run(parse_args(argv))["ok"] else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -10,10 +10,11 @@ freezes it into ``ControllerArrays`` (tensors) and ``ControllerConfig``
 (static metadata) for the rollout engine.
 
 Ported so far: the tube-tracking variant (``TubeTrackingMPC.py``, the
-flagship of ``bench.py`` and the robust arm of the Results apps) and the
-tracking variant (``TrackingMPC.py``, the non-robust arm).  The regulator
-variants, the extended (packet-received) problem and condensed templates
-are not ported yet.
+flagship of ``bench.py`` and the robust arm of the Results apps), the
+tracking variant (``TrackingMPC.py``, the non-robust arm) and the extended
+tube-tracking variant (``ExtendedTubeTrackingMPC``, paper Section IV.F: a
+second, packet-received QP whose initial tube is ``Z - W``).  The regulator
+variants and condensed templates are not ported yet.
 
 ``arrays_from_numpy`` bridges the other way: it builds the port's arrays
 from the JAX package's ``ControllerArrays`` converted to numpy.
@@ -29,7 +30,7 @@ import torch
 
 from ..sets.invariant import (determine_mrpi, max_admissible_set,
                               tighten_constraints)
-from ..utils.polytope import Polytope, box
+from ..utils.polytope import Polytope, box, pont_diff
 from ..utils.synthesis import dlqr, dlyap
 from ..ops.assembly import QPTemplate, build_mpc_qp
 from ..ops.precision import DEFAULT_DTYPE
@@ -38,7 +39,8 @@ from ..ops.qp import PAD_TO, ADMMSpec, prepare_admm
 from ..tree import tree_to
 
 __all__ = ["MPCSetup", "ControllerArrays", "ControllerConfig",
-           "setup_tracking", "setup_tube_tracking", "flagship_setup",
+           "setup_tracking", "setup_tube_tracking",
+           "setup_extended_tube_tracking", "flagship_setup",
            "arrays_from_numpy", "spec_from_numpy", "ric_spec_from_numpy",
            "SOLVERS"]
 
@@ -73,6 +75,7 @@ class MPCSetup:
     Uc: Optional[Polytope] = None
     Xf: Optional[Polytope] = None           # terminal set
     template: Optional[QPTemplate] = None
+    template_pr: Optional[QPTemplate] = None  # extended: packet-received QP
     fixed_initial_state: bool = False
     lambda_param: float = 0.99999
 
@@ -101,21 +104,32 @@ class MPCSetup:
         structured IP's spec (``arrays.ric``) from the uncondensed template
         and runs at most ``ip_iters`` iterations a solve; it builds no
         ADMM spec (``arrays.admm`` is None).
+
+        An extended setup (``template_pr`` set) also gets the
+        packet-received QP's specs, ``admm_pr``/``admm2_pr`` or ``ric_pr``,
+        prepared from ``template_pr`` on its own (its rho is tuned on its
+        own); any other setup keeps them None.
         """
         if solver not in SOLVERS:
             raise NotImplementedError(
                 f"solver {solver!r} is not ported yet (ported: {SOLVERS})")
         tmpl = self.template
-        admm = admm2 = ric = None
-        if solver == "ip_riccati":
-            ric = prepare_ip_riccati(tmpl, dtype=dtype, device=device)
-        else:
-            tune_iters = max(100, min(iters + iters2, 600))
-            r2s = rho2_scale if iters2 > 0 else None
-            admm = prepare_admm(tmpl, alpha=alpha, dtype=dtype,
-                                device=device, tune_iters=tune_iters,
-                                rho2_scale=r2s)
-            admm, admm2 = admm if iters2 > 0 else (admm, admm)
+
+        def prepare(t):
+            """``(admm, admm2, ric)`` of one template (None: all None)."""
+            if t is None:
+                return None, None, None
+            if solver == "ip_riccati":
+                return None, None, prepare_ip_riccati(t, dtype=dtype,
+                                                      device=device)
+            spec = prepare_admm(
+                t, alpha=alpha, dtype=dtype, device=device,
+                tune_iters=max(100, min(iters + iters2, 600)),
+                rho2_scale=rho2_scale if iters2 > 0 else None)
+            return (*(spec if iters2 > 0 else (spec, spec)), None)
+
+        admm, admm2, ric = prepare(tmpl)
+        admm_pr, admm2_pr, ric_pr = prepare(self.template_pr)
 
         # tube cross-section H-rep for membership checks, padded; a setup
         # without a tube gets one dummy row
@@ -138,9 +152,11 @@ class MPCSetup:
             admm=admm, admm2=admm2,
             A=tensor(self.A), B=tensor(self.B),
             K_ss=tensor(self.K), K_plant=tensor(Kp),
-            Hz=tensor(Hz_p), hz=tensor(hz_p), ric=ric)
+            Hz=tensor(Hz_p), hz=tensor(hz_p), ric=ric,
+            admm_pr=admm_pr, admm2_pr=admm2_pr, ric_pr=ric_pr)
         return arrays, _config(self.nx, self.nu, self.N, tmpl, iters, iters2,
-                               solver, ip_iters)
+                               solver, ip_iters,
+                               extended=self.template_pr is not None)
 
 
 class ControllerArrays(NamedTuple):
@@ -154,6 +170,10 @@ class ControllerArrays(NamedTuple):
     Hz: torch.Tensor           # (mz_p, nx) tube H-rep (padded)
     hz: torch.Tensor           # (mz_p,)
     ric: Optional[RiccatiIPSpec] = None   # structured IP (solver ip_riccati)
+    # the packet-received QP of an extended setup (None otherwise)
+    admm_pr: Optional[ADMMSpec] = None
+    admm2_pr: Optional[ADMMSpec] = None
+    ric_pr: Optional[RiccatiIPSpec] = None
 
     def to(self, device) -> "ControllerArrays":
         return tree_to(self, device)
@@ -174,13 +194,15 @@ class ControllerConfig:
     xbar_off: int              # offset of the artificial steady state xbar
     ubar_off: int              # offset of ubar
     ip_iters: int = 25         # interior-point iteration cap (ip_riccati)
+    extended: bool = False     # two QPs picked by the previous step's gamma
 
 
-def _config(nx, nu, N, tmpl, iters, iters2, solver,
-            ip_iters) -> ControllerConfig:
+def _config(nx, nu, N, tmpl, iters, iters2, solver, ip_iters,
+            extended=False) -> ControllerConfig:
     return ControllerConfig(
         nx=nx, nu=nu, N=N, n=tmpl.n, tracking=tmpl.tracking,
         iters=iters, iters2=iters2, solver=solver, ip_iters=ip_iters,
+        extended=extended,
         u_off=nx * (N + 1),
         xbar_off=nx * (N + 1) + nu * N,
         ubar_off=nx * (N + 1) + nu * N + nx)
@@ -220,20 +242,29 @@ def arrays_from_numpy(np_arrays, dtype: torch.dtype = torch.float64,
     """The port's ``ControllerArrays`` from the JAX package's, given as
     numpy leaves (``jax.tree_util.tree_map(np.asarray, arrays)``).
 
-    Keeps ``admm``/``admm2`` (through ``spec_from_numpy``), ``ric`` where
-    the JAX package built one, and the model matrices; drops the dense
-    interior point's ``ip``."""
+    Keeps ``admm``/``admm2`` and ``admm_pr``/``admm2_pr`` (through
+    ``spec_from_numpy``; the JAX package gives a setup without a
+    packet-received QP copies of ``admm``/``admm2`` there), ``ric`` and
+    ``ric_pr`` where the JAX package built them, and the model matrices;
+    drops the dense interior point's ``ip``."""
     def tensor(a):
         return _np_tensor(a, dtype, device)
 
+    def admm(f):
+        return spec_from_numpy(getattr(np_arrays, f), dtype, device)
+
+    def ric(f):
+        spec = getattr(np_arrays, f)
+        return (None if spec is None
+                else ric_spec_from_numpy(spec, dtype, device))
+
     return ControllerArrays(
-        admm=spec_from_numpy(np_arrays.admm, dtype, device),
-        admm2=spec_from_numpy(np_arrays.admm2, dtype, device),
+        admm=admm("admm"), admm2=admm("admm2"),
         A=tensor(np_arrays.A), B=tensor(np_arrays.B),
         K_ss=tensor(np_arrays.K_ss), K_plant=tensor(np_arrays.K_plant),
-        Hz=tensor(np_arrays.Hz), hz=tensor(np_arrays.hz),
-        ric=(None if np_arrays.ric is None
-             else ric_spec_from_numpy(np_arrays.ric, dtype, device)))
+        Hz=tensor(np_arrays.Hz), hz=tensor(np_arrays.hz), ric=ric("ric"),
+        admm_pr=admm("admm_pr"), admm2_pr=admm("admm2_pr"),
+        ric_pr=ric("ric_pr"))
 
 
 # ---------------------------------------------------------------------------
@@ -338,6 +369,55 @@ def setup_tube_tracking(A, B, Q, R, N, X: Polytope, U: Polytope, W: Polytope,
                     X=X, U=U, W=W, Z=Z, Xc=Xc, Uc=Uc, Xf=Xf, template=tmpl,
                     fixed_initial_state=fixed_initial_state,
                     lambda_param=lambda_param)
+
+
+def setup_extended_tube_tracking(A, B, Q, R, N, X: Polytope, U: Polytope,
+                                 W: Polytope,
+                                 fixed_initial_state: bool = False,
+                                 rpi_method: int = 0, eps_var: float = 1e-4,
+                                 K_ancillary: Optional[np.ndarray] = None,
+                                 lambda_param: float = 0.99999,
+                                 compat_reference_bug: bool = False
+                                 ) -> MPCSetup:
+    """ExtendedTubeTrackingMPC (paper Section IV.F): two QPs, the normal
+    tube-tracking problem plus a packet-received variant whose initial tube
+    is shrunk to ``Z - W`` (``TubeTrackingMPC.py:265-267``).
+
+    ``compat_reference_bug=True`` reproduces the reference's vacuous
+    terminal constraint in the packet-received problem (its eq at :293
+    references the *other* problem's CVXPY variables, so the constraint
+    never binds); the default applies the corrected constraint.
+    """
+    setup = setup_tube_tracking(
+        A, B, Q, R, N, X, U, W,
+        fixed_initial_state=fixed_initial_state, rpi_method=rpi_method,
+        eps_var=eps_var, K_ancillary=K_ancillary, lambda_param=lambda_param)
+    ZmW = pont_diff(setup.Z, W)
+    if np.any(ZmW.b < 0):
+        raise ValueError("Z - W is empty: the disturbance set is too large "
+                         "relative to the tube for the extended MPC")
+    tmpl_pr = build_mpc_qp(
+        setup.A, setup.B, setup.Q, setup.R, N,
+        tracking=True, P_term=setup.P, Tout=setup.Tout,
+        Hx=setup.Xc.A, hx=setup.Xc.b, Hu=setup.Uc.A, hu=setup.Uc.b,
+        HxN=None if compat_reference_bug else setup.Xf.A,
+        hxN=None if compat_reference_bug else setup.Xf.b,
+        terminal_augmented=not compat_reference_bug,
+        init_mode="tube", Hz=ZmW.A, hz=ZmW.b)
+    if compat_reference_bug:
+        # The reference's packet-received problem keeps x_N free of any
+        # terminal coupling; build_mpc_qp would add x_N == xbar when no
+        # terminal set is given, so strip that equality to mimic the bug.
+        neq = tmpl_pr.m - setup.nx
+        tmpl_pr = dataclasses.replace(
+            tmpl_pr,
+            A=tmpl_pr.A[:neq], l0=tmpl_pr.l0[:neq], u0=tmpl_pr.u0[:neq],
+            Ml=tmpl_pr.Ml[:neq], Mu=tmpl_pr.Mu[:neq],
+            is_eq=tmpl_pr.is_eq[:neq],
+            row_meta={**tmpl_pr.row_meta, "terminal_eq_fallback": False,
+                      "mN": 0})
+    return dataclasses.replace(setup, kind="extended_tube_tracking",
+                               template_pr=tmpl_pr)
 
 
 def flagship_setup() -> MPCSetup:

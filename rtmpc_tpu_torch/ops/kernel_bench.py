@@ -5,9 +5,9 @@
 Builds the kernel, holds it against its plain PyTorch version on random
 QPs (``qp_cuda._synthetic_spec``) at the shapes of the main paths (the
 flagship's 40 + 112 columns at B=16384, the cartpole's 112 + 792 and
-112 + 840 at B=200), at the widest shape of each path and at ragged and
-tiny batches, and times one phase at the main shapes with CUDA events
-beside
+112 + 840 and the extended controller's 112 + 1648 at B=200), at the widest
+shape of each path and at ragged and tiny batches, and times one phase at
+the main shapes with CUDA events beside
 
 * the FP32 bound of the same work (``roofline_ms``), and
 * ``iters`` back-to-back ``torch.mm`` calls ``(B, n+m) @ (n+m, n+m)`` in
@@ -36,7 +36,8 @@ PEAK_BYTES_PER_S = 3.35e12
 # (label, n_p, m_p, ntheta, batch, iterations) of the main paths
 MAIN_SHAPES = (("flagship 40+112", 40, 112, 4, 16384, 60),
                ("cartpole tube 112+792", 112, 792, 8, 200, 200),
-               ("cartpole tracking 112+840", 112, 840, 8, 200, 200))
+               ("cartpole tracking 112+840", 112, 840, 8, 200, 200),
+               ("cartpole extended 112+1648", 112, 1648, 8, 200, 200))
 # the widest shape of each path and the narrowest of the large one
 WIDTH_SHAPES = ((48, 144), (41, 152), (256, 1792))
 
@@ -47,6 +48,13 @@ WIDTH_SHAPES = ((48, 144), (41, 152), (256, 1792))
 # sums in two orders, scaled into y by rho = 500 on the equality rows).
 Z_ATOL, Y_ATOL = 1e-4, 2e-3
 CP_Z_ATOL, CP_Y_ATOL = 1.5e-3, 2e-2
+# The extended controller's two QPs (112 + 1648 columns): 7-8x what the same
+# card read (z 1.01e-4, y 6.03e-4 at B=200; rho = 500 scales fewer of these
+# rows than of the 904-column QPs'), and at the small batches absolute float64
+# bars of 2x the kernel's readings there (z 1.4e-4, y 2.9e-4; plain float32
+# read y 5.8e-5 to 2.2e-4 at those batches, so the ratio is noisy there too).
+EXT_Z_ATOL, EXT_Y_ATOL = 7e-4, 5e-3
+EXT_F64_SMALL_B = (3e-4, 6e-4)
 # Against the plain version in float64 the kernel's error may be at most
 # this multiple of the plain float32 version's own error.
 F64_RATIO = 3.0

@@ -20,7 +20,7 @@ import dataclasses
 import hashlib
 import os
 import time
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -90,6 +90,7 @@ def run_mc_sweep(
     draws: SweepDraws,
     actuator_mode: str = "consistent",
     infeas_mode: Optional[str] = None,
+    plant_step: Optional[Callable] = None,
     sample_mc_index: int = 5,
     checkpoint_path: Optional[str] = None,
     n_chunks: int = 1,
@@ -100,16 +101,19 @@ def run_mc_sweep(
     from the draws' uniforms (as the JAX package forms them under x64),
     then cast to the engine's dtype.  ``sample_mc_index``: which run's
     trajectory to keep per probability (the reference keeps run
-    ``min(5, N_MC - 1)``).
+    ``min(5, N_MC - 1)``).  ``plant_step``: the engine's plant
+    (``make_batched_rollout``), default the linear one.
 
     Checkpoint / resume: with ``checkpoint_path`` set and ``n_chunks > 1``
     the batch runs in chunks along the probability axis and the results
     so far are written atomically to an ``.npz`` after each chunk; a rerun
     with the same path resumes after the last finished chunk.  The
     fingerprint in the file hashes everything that determines the rows
-    (shapes, the draws, the probabilities, the chunk plan, x0 and refs),
-    so a checkpoint of another sweep is ignored.  Chunked and resumed
-    runs are bit-identical to a single-shot run.
+    (shapes, the draws, the disturbance box, the probabilities, the chunk
+    plan, x0, refs and the plant's name: ``plant_step.plant_id`` where the
+    callable carries one, else its qualified name), so a checkpoint of
+    another sweep is ignored.  Chunked and resumed runs are bit-identical
+    to a single-shot run.
     """
     loss_probs = np.asarray(loss_probs, dtype=np.float64)
     P, M = len(loss_probs), int(n_mc)
@@ -132,7 +136,8 @@ def run_mc_sweep(
                            device=dev).reshape(nx).expand(P * M, nx)
 
     roll = make_batched_rollout(arrays, cfg, T, actuator_mode=actuator_mode,
-                                infeas_mode=infeas_mode)
+                                infeas_mode=infeas_mode,
+                                plant_step=plant_step)
 
     n_chunks = max(1, min(int(n_chunks), P))
     bounds = np.linspace(0, P, n_chunks + 1).astype(int)   # prob-axis cuts
@@ -144,10 +149,14 @@ def run_mc_sweep(
     sample_x_nom = np.zeros((P, T, nx))
     wall = 0.0
 
-    hsh = hashlib.sha256()
+    plant_id = "linear" if plant_step is None else getattr(
+        plant_step, "plant_id",
+        f"{plant_step.__module__}.{plant_step.__qualname__}")
+    hsh = hashlib.sha256(plant_id.encode())
     for part in (*(a.cpu().numpy() for a in draws),
                  np.asarray([P, M, T, nx], np.int64), loss_probs, bounds,
-                 np.asarray(x0, np.float64), np.asarray(refs, np.float64)):
+                 np.asarray(x0, np.float64), np.asarray(refs, np.float64),
+                 np.asarray(w_lo, np.float64), np.asarray(w_hi, np.float64)):
         hsh.update(np.ascontiguousarray(part).tobytes())
     fingerprint = np.frombuffer(hsh.digest(), dtype=np.uint8)
     if checkpoint_path and os.path.exists(checkpoint_path):

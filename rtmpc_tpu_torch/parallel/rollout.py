@@ -13,8 +13,20 @@ rollouts at once:
   2. the packet ``U_t = [u_nom(0..N-1), ubar + K xbar]``;
   3. the estimator records the optimal initial nominal state;
   4. the actuator processes the packet gated by theta;
-  5. the linear plant ``x+ = A x + B u + w``;
+  5. the plant: ``x+ = A x + B u + w``, or the caller's ``plant_step``
+     (the nonlinear cartpole of ``apps/results_nonlinear.py``);
   6. the estimator processes the reply gated by gamma.
+
+An extended controller (``cfg.extended``, paper Section IV.F) has two QPs:
+the normal one and the packet-received one, whose initial tube is
+``Z - W``.  A rollout uses the packet-received QP's solution at step t when
+the PREVIOUS step's reply arrived (``prev_gamma == 1``, which starts at 1),
+its actuator and estimator run in their extended and robust variants, and
+under the ADMM solvers both QPs are solved every step so that both warm
+starts advance, the unselected one too.  The interior point is cold every
+step, so where the two QPs differ in the initial tube's bounds alone (they
+do unless ``compat_reference_bug`` is set) it solves once, each rollout
+with the bounds of the QP it uses (``_one_solve_spec``).
 
 A rollout whose QP solution goes non-finite is frozen (state kept,
 ``feasible`` False, timers still advancing).  With
@@ -23,7 +35,8 @@ rollout also freezes once its QP is certified infeasible for
 ``INFEAS_PERSIST`` consecutive steps: under the ADMM solvers by the
 OSQP-style certificates (``ops/qp.py:infeasibility_certificates``, taken
 with the spec whose rho produced the final state), under "ip_riccati" by a
-final primal residual above 1e-2.
+final primal residual above 1e-2; an extended controller is certified on
+the QP it used that step.
 """
 
 from __future__ import annotations
@@ -33,7 +46,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..models.specs import ControllerArrays, ControllerConfig
-from ..ops.ip_riccati import ip_riccati_solve
+from ..ops.ip_riccati import RiccatiIPSpec, ip_riccati_solve
 from ..ops.qp import (ADMMSolution, ADMMState, admm_solve,
                       infeasibility_certificates, init_admm_state)
 from ..ops.qp_cuda import admm_solve_cuda
@@ -56,6 +69,8 @@ class RolloutCarry(NamedTuple):
     act: ActuatorState
     est: EstimatorState
     admm: Optional[ADMMState]  # ADMM warm-start iterate (None under IP)
+    admm_pr: Optional[ADMMState]  # same, packet-received QP (extended ADMM)
+    prev_gamma: torch.Tensor  # (B,) int32 gamma of the previous step
     feasible: torch.Tensor    # (B,) bool
     infeas_count: torch.Tensor  # (B,) int32 consecutive certified steps
 
@@ -79,12 +94,16 @@ def init_carry(arrays: ControllerArrays, cfg: ControllerConfig,
     """Initial carry for the batch of initial states ``x0 (B, nx)``."""
     x0 = x0.to(dtype=arrays.A.dtype, device=arrays.A.device)
     B = x0.shape[0]
+    admm = cfg.solver != "ip_riccati"
     return RolloutCarry(
         x=x0,
         act=init_actuator(cfg.N, cfg.nu, x0),
         est=init_estimator(x0),
-        admm=(None if cfg.solver == "ip_riccati"
-              else init_admm_state(arrays.admm, B)),
+        admm=init_admm_state(arrays.admm, B) if admm else None,
+        admm_pr=(init_admm_state(arrays.admm_pr, B)
+                 if admm and cfg.extended else None),
+        # 1: step 0 of an extended controller uses the packet-received QP
+        prev_gamma=torch.ones(B, dtype=torch.int32, device=x0.device),
         feasible=torch.ones(B, dtype=torch.bool, device=x0.device),
         infeas_count=torch.zeros(B, dtype=torch.int32, device=x0.device))
 
@@ -109,20 +128,28 @@ def _phase_solver(cfg: ControllerConfig) -> Callable:
 
 
 def _solve(arrays: ControllerArrays, cfg: ControllerConfig,
-           theta_qp: torch.Tensor, warm: Optional[ADMMState]
+           theta_qp: torch.Tensor, warm: Optional[ADMMState],
+           pr: bool = False, ric: Optional[RiccatiIPSpec] = None
            ) -> ADMMSolution:
-    """Solver "ip_riccati": one cold interior-point solve (the warm state
-    passes through).  Otherwise the two-phase schedule as a state
-    hand-off: phase 1 at ``admm``, phase 2 at ``admm2`` (rho scaled) from
-    phase 1's iterate; residuals are phase 2's."""
+    """One QP solve for the batch, of the packet-received QP if ``pr``.
+
+    Solver "ip_riccati": one cold interior-point solve (the warm state
+    passes through) on ``ric`` if given, else on the arrays' spec.
+    Otherwise the two-phase schedule as a state hand-off: phase 1 at
+    ``admm``, phase 2 at ``admm2`` (rho scaled) from phase 1's iterate;
+    residuals are phase 2's."""
     if cfg.solver == "ip_riccati":
-        sol = ip_riccati_solve(arrays.ric, theta_qp, cfg.N, iters=cfg.ip_iters)
+        if ric is None:
+            ric = arrays.ric_pr if pr else arrays.ric
+        sol = ip_riccati_solve(ric, theta_qp, cfg.N, iters=cfg.ip_iters)
         return ADMMSolution(z_primal=sol.z_primal, state=warm,
                             r_prim=sol.r_prim, r_dual=sol.r_dual)
+    spec, spec2 = ((arrays.admm_pr, arrays.admm2_pr) if pr
+                   else (arrays.admm, arrays.admm2))
     solve = _phase_solver(cfg)
-    sol = solve(arrays.admm, theta_qp, warm, iters=cfg.iters)
+    sol = solve(spec, theta_qp, warm, iters=cfg.iters)
     if cfg.iters2 > 0:
-        sol = solve(arrays.admm2, theta_qp, sol.state, iters=cfg.iters2)
+        sol = solve(spec2, theta_qp, sol.state, iters=cfg.iters2)
     return sol
 
 
@@ -132,30 +159,89 @@ def _select(keep, a, b):
 
 
 def _certified_infeasible(arrays: ControllerArrays, cfg: ControllerConfig,
-                          theta_qp, sol: ADMMSolution) -> torch.Tensor:
+                          theta_qp, sol: ADMMSolution,
+                          pr: bool = False) -> torch.Tensor:
     """The per-step infeasibility verdict of ``infeas_mode="certificate"``
-    (``rtmpc_tpu/parallel/rollout.py:324-357``)."""
+    (``rtmpc_tpu/parallel/rollout.py:324-357``) on one QP's solution."""
     if cfg.solver == "ip_riccati":
         # the best-iterate return keeps z finite on infeasible instances:
         # feasible solves land at <= 1e-6, infeasible ones stall >= 1e-2
         return sol.r_prim > 1e-2
-    spec = arrays.admm2 if cfg.iters2 > 0 else arrays.admm
+    # the spec whose rho produced the final state
+    spec = ((arrays.admm2_pr if pr else arrays.admm2) if cfg.iters2 > 0
+            else (arrays.admm_pr if pr else arrays.admm))
     pinf, dinf = infeasibility_certificates(spec, theta_qp, sol.state,
                                             solve=_phase_solver(cfg))
     return pinf | dinf
 
 
+def _one_solve_eligible(arrays: ControllerArrays,
+                        cfg: ControllerConfig) -> bool:
+    """Whether an extended controller under "ip_riccati" can solve once a
+    step: the two QPs' specs are equal in every field but the initial
+    tube's bounds ``ht0``."""
+    if not (cfg.extended and cfg.solver == "ip_riccati"):
+        return False
+    return all(f == "ht0" or (a.shape == b.shape and torch.equal(a, b))
+               for f, a, b in zip(RiccatiIPSpec._fields, arrays.ric,
+                                  arrays.ric_pr))
+
+
+def _one_solve_spec(arrays: ControllerArrays,
+                    use_pr: torch.Tensor) -> RiccatiIPSpec:
+    """The interior point's spec with each rollout's own initial-tube
+    bounds: the packet-received QP's where ``use_pr (B,)``, else the normal
+    QP's (``ht0`` becomes ``(B, mt)``; the solve broadcasts it)."""
+    return arrays.ric._replace(
+        ht0=_select(use_pr, arrays.ric_pr.ht0.expand(use_pr.shape[0], -1),
+                    arrays.ric.ht0))
+
+
+def _solve_step(arrays: ControllerArrays, cfg: ControllerConfig,
+                infeas_mode: Optional[str], one_solve: bool,
+                carry: RolloutCarry, theta_qp: torch.Tensor):
+    """The solve stage of a step: ``(sol, admm_pr_new, cert_bad)``, where
+    ``sol`` holds the solution the step uses (an extended controller's
+    pick on the previous step's gamma) and the normal QP's warm state,
+    ``admm_pr_new`` the packet-received QP's, and ``cert_bad (B,)`` the
+    infeasibility verdict on the QP that was used (False without
+    ``infeas_mode``)."""
+    certify = infeas_mode == "certificate"
+    no_cert = torch.zeros_like(carry.feasible)
+    use_pr = carry.prev_gamma == 1
+    if not cfg.extended or one_solve:
+        ric = _one_solve_spec(arrays, use_pr) if one_solve else None
+        sol = _solve(arrays, cfg, theta_qp, carry.admm, ric=ric)
+        bad = (_certified_infeasible(arrays, cfg, theta_qp, sol)
+               if certify else no_cert)
+        return sol, carry.admm_pr, bad
+    sol = _solve(arrays, cfg, theta_qp, carry.admm)
+    sol_pr = _solve(arrays, cfg, theta_qp, carry.admm_pr, pr=True)
+    bad = no_cert
+    if certify:
+        bad = _select(use_pr,
+                      _certified_infeasible(arrays, cfg, theta_qp, sol_pr,
+                                            pr=True),
+                      _certified_infeasible(arrays, cfg, theta_qp, sol))
+    used = ADMMSolution(
+        z_primal=_select(use_pr, sol_pr.z_primal, sol.z_primal),
+        state=sol.state,
+        r_prim=_select(use_pr, sol_pr.r_prim, sol.r_prim),
+        r_dual=_select(use_pr, sol_pr.r_dual, sol.r_dual))
+    return used, sol_pr.state, bad
+
+
 def _step(arrays: ControllerArrays, cfg: ControllerConfig,
           actuator_mode: str, infeas_mode: Optional[str],
+          plant_step: Callable, one_solve: bool,
           carry: RolloutCarry, ref_t, w_t, theta_t, gamma_t):
     theta_qp = torch.cat([carry.est.x_hat, ref_t.to(carry.x.dtype)], dim=-1)
-    sol = _solve(arrays, cfg, theta_qp, carry.admm)
+    sol, admm_pr_new, cert_bad = _solve_step(arrays, cfg, infeas_mode,
+                                             one_solve, carry, theta_qp)
     z = sol.z_primal
     U_t, x_nom0, _ = _extract_packet(arrays, cfg, z)
     finite = torch.isfinite(z.sum(dim=1))
-    bad_now = ~finite
-    if infeas_mode == "certificate":
-        bad_now = bad_now | _certified_infeasible(arrays, cfg, theta_qp, sol)
+    bad_now = cert_bad | ~finite
     infeas_count = torch.where(bad_now, carry.infeas_count + 1,
                                torch.zeros_like(carry.infeas_count))
     feasible = carry.feasible & (infeas_count < INFEAS_PERSIST) & finite
@@ -164,13 +250,14 @@ def _step(arrays: ControllerArrays, cfg: ControllerConfig,
     u_t, plant_pkt, act_new, aux = actuator_step(
         carry.act, U_t, carry.est.q, x_nom0, carry.x, theta_t,
         arrays.A, arrays.B, arrays.K_ss, arrays.K_plant, cfg.N,
-        mode=actuator_mode)
-    x_next = carry.x @ arrays.A.T + u_t @ arrays.B.T + w_t
+        mode=actuator_mode, extended=cfg.extended)
+    x_next = plant_step(carry.x, u_t, w_t)
     est_new = estimator_update(est1, plant_pkt, gamma_t, arrays.A, arrays.B,
-                               U_t)
+                               U_t, robust=cfg.extended)
 
     new_carry = RolloutCarry(x=x_next, act=act_new, est=est_new,
-                             admm=sol.state, feasible=feasible,
+                             admm=sol.state, admm_pr=admm_pr_new,
+                             prev_gamma=gamma_t, feasible=feasible,
                              infeas_count=infeas_count)
     # a frozen rollout keeps its state, but its timers advance so the
     # indices stay aligned with the time loop
@@ -178,7 +265,8 @@ def _step(arrays: ControllerArrays, cfg: ControllerConfig,
         x=carry.x,
         act=carry.act._replace(t=carry.act.t + 1),
         est=carry.est._replace(t=carry.est.t + 1),
-        admm=carry.admm, feasible=feasible, infeas_count=infeas_count)
+        admm=carry.admm, admm_pr=carry.admm_pr, prev_gamma=gamma_t,
+        feasible=feasible, infeas_count=infeas_count)
     out_carry = tree_map(lambda a, b: _select(feasible, a, b),
                          new_carry, frozen)
     out = StepOutputs(
@@ -190,7 +278,9 @@ def _step(arrays: ControllerArrays, cfg: ControllerConfig,
 
 def make_batched_rollout(arrays: ControllerArrays, cfg: ControllerConfig,
                          T: int, actuator_mode: str = "consistent",
-                         infeas_mode: Optional[str] = None) -> Callable:
+                         infeas_mode: Optional[str] = None,
+                         plant_step: Optional[Callable] = None,
+                         one_solve: Optional[bool] = None) -> Callable:
     """Build ``rollout(x0, refs, w, theta, gamma) -> (carry, StepOutputs)``.
 
     Inputs are batch-major: ``x0 (B, nx)``, ``refs``/``w`` ``(B, T, nx)``,
@@ -198,9 +288,23 @@ def make_batched_rollout(arrays: ControllerArrays, cfg: ControllerConfig,
     are batch-major too (``(B, T, .)``), as the JAX batched engine returns
     them.  ``cfg.solver`` picks the QP solve of step 1;
     ``actuator_mode`` is "consistent" or "smart"; ``infeas_mode`` None or
-    "certificate" (see the module note)."""
+    "certificate" (see the module note); ``plant_step(x (B, nx), u (B, nu),
+    w (B, nx)) -> x_next`` defaults to the linear plant; ``one_solve`` (an
+    extended controller under "ip_riccati": one solve a step with
+    per-rollout bounds, see the module note) defaults to wherever the two
+    QPs allow it, and False solves both and selects."""
     if infeas_mode not in (None, "certificate"):
         raise ValueError(f"unknown infeas_mode {infeas_mode!r}")
+    if plant_step is None:
+        def plant_step(x, u, w):
+            return x @ arrays.A.T + u @ arrays.B.T + w
+    eligible = _one_solve_eligible(arrays, cfg)
+    if one_solve is None:
+        one_solve = eligible
+    elif one_solve and not eligible:
+        raise ValueError("one_solve needs an extended controller under "
+                         "solver 'ip_riccati' whose two QPs differ in the "
+                         "initial tube's bounds alone")
 
     def rollout(x0, refs, w, theta, gamma):
         carry = init_carry(arrays, cfg, x0)
@@ -208,8 +312,8 @@ def make_batched_rollout(arrays: ControllerArrays, cfg: ControllerConfig,
         outs = []
         for t in range(T):
             carry, out = _step(arrays, cfg, actuator_mode, infeas_mode,
-                               carry, refs[:, t], w[:, t], theta[:, t],
-                               gamma[:, t])
+                               plant_step, one_solve, carry, refs[:, t],
+                               w[:, t], theta[:, t], gamma[:, t])
             outs.append(out)
         stacked = tree_map(lambda *a: torch.stack(a, dim=1), *outs)
         return carry, stacked

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from rtmpc_tpu_torch.models import flagship_setup
-from rtmpc_tpu_torch.ops.kernel_bench import (CP_Y_ATOL, CP_Z_ATOL, Y_ATOL,
+from rtmpc_tpu_torch.ops.kernel_bench import (CP_Y_ATOL, CP_Z_ATOL,
+                                              EXT_Y_ATOL, EXT_Z_ATOL, Y_ATOL,
                                               Y_ATOL_SMALL_B, Z_ATOL,
                                               compare_with_plain)
 from rtmpc_tpu_torch.ops.qp_cuda import (_admm_solve_cuda_plain,
@@ -226,3 +227,83 @@ def test_ip_riccati_card_matches_cpu(cartpole, arm):
             + (q * z).sum(1)
     assert (np.abs(obj["cuda"] - obj["cpu"])
             <= IP_OBJ_RTOL * np.abs(obj["cpu"])).all()
+
+
+# ---------------------------------------------------------------------------
+# The extended arm and the nonlinear plant: the cluster path above 1024
+# columns (8 rows a cluster) on the extended controller's two QPs
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def extended():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the ADMM kernel has no CPU mode")
+    from rtmpc_tpu_torch.apps.common import (ADMM_SCHEDULE,
+                                             cartpole_controllers)
+    from rtmpc_tpu_torch.apps.scenarios import cartpole_scenario
+    sc = cartpole_scenario()
+    setup = cartpole_controllers(sc, ("ext",))["ext"]
+    return sc, setup.to_device(torch.float32, "cuda", solver="cuda",
+                               **ADMM_SCHEDULE)
+
+
+@pytest.mark.parametrize("B", [1, "rows-1", "rows+1", 37, 200])
+@pytest.mark.parametrize("qp", ["normal", "packet-received"])
+def test_extended_qps_match_plain_version(extended, qp, B):
+    """112 + 1648 columns, 200 cold iterations at phase 1 then 200 warm at
+    phase 2, on both of the extended controller's QPs."""
+    arrays, _ = extended[1]
+    spec1, spec2 = ((arrays.admm, arrays.admm2) if qp == "normal"
+                    else (arrays.admm_pr, arrays.admm2_pr))
+    n_p, m_p = spec1.Kinv.shape[0], spec1.As.shape[0]
+    assert (n_p, m_p) == (112, 1648) and kernel_path(n_p + m_p) == "l2"
+    assert kernel_rows(n_p, m_p) == 8
+    if isinstance(B, str):
+        B = kernel_rows(n_p, m_p) + int(B[4:])
+    th = _cartpole_theta(B, 1)
+    before = dict(admm_solve_cuda.launches_by_path)
+    compare_with_plain(spec1, spec2, th, th, (200, 200),
+                       (EXT_Z_ATOL, EXT_Y_ATOL))
+    assert admm_solve_cuda.launches_by_path["l2"] == before["l2"] + 2
+
+
+@pytest.mark.parametrize("plant", ["linear", "nonlinear"])
+def test_extended_closed_loop_launches_both_qps(extended, plant):
+    """Solver "cuda" on the card: 4 launches a step (2 QPs x 2 phases), 6
+    where the arm runs on certificates; feasible, finite, and the loss-free
+    rollouts agree with solver "admm" on the card."""
+    from rtmpc_tpu_torch.apps.results_nonlinear import (
+        build_nonlinear_plant_step)
+    sc, (arrays, cfg) = extended
+    B, T = 16, 6
+    g = torch.Generator(device="cuda").manual_seed(2)
+    theta, gamma = draw_loss_masks(g, T, 0.5, 0.5, (B,))
+    nonlinear = plant == "nonlinear"
+    w = draw_disturbances(g, T, -sc.w_hi * (not nonlinear),
+                          sc.w_hi * (not nonlinear), (B,))
+    refs = torch.zeros(B, T, 4, device="cuda")
+    refs[:, :, 0] = sc.ref_value
+    x0 = torch.zeros(B, 4, device="cuda")
+    kw = dict(plant_step=build_nonlinear_plant_step(sc) if nonlinear
+              else None,
+              infeas_mode="certificate" if nonlinear else None)
+    before = admm_solve_cuda.launches
+    ck, ok = make_batched_rollout(arrays, cfg, T, **kw)(x0, refs, w, theta,
+                                                       gamma)
+    assert admm_solve_cuda.launches - before == (6 if nonlinear else 4) * T
+    assert bool(ck.feasible.all()) and bool(torch.isfinite(ok.x).all())
+    ca, oa = make_batched_rollout(
+        arrays, dataclasses.replace(cfg, solver="admm"), T, **kw)(
+            x0, refs, w, theta, gamma)
+    assert torch.equal(ok.Theta, oa.Theta)
+    assert (ok.x - oa.x).abs().max().item() <= 1e-3
+
+
+def test_step_profile_reads_the_extended_step(extended):
+    from rtmpc_tpu_torch.parallel.step_profile import profile_steps
+    res = profile_steps(16, 2, "extended", "cuda", "nonlinear")
+    assert res["k1_launches_per_step"] == 4
+    assert res["plant_device_ops_per_call"] > 10
+    res = profile_steps(8, 1, "extended", "ip_riccati", "linear")
+    assert res["ip_iterations_per_step"] > 3
+    assert "k1_ms_per_launch" not in res

@@ -67,6 +67,30 @@ _ROLLOUT = _BLOCK_JAX + textwrap.dedent("""
                            cfg.N)
     assert float(sol.r_prim) < 1e-9
     assert cartpole_scenario().N == 20
+
+    # the extended arm and the nonlinear plant, with their two apps
+    from rtmpc_tpu_torch.apps import (results_linear_extended,  # noqa: F401
+                                      results_nonlinear)
+    from rtmpc_tpu_torch.models import setup_extended_tube_tracking
+    from rtmpc_tpu_torch.models.plants import CartpoleParams, cartpole_zoh_step
+    ext = setup_extended_tube_tracking(
+        [[1.0, 1.0], [0.0, 1.0]], [[0.0], [1.0]], np.eye(2), np.eye(1), 10,
+        box(np.array([8.0, 8.0])), box(np.array([1.0])),
+        box(np.array([0.1, 0.1])))
+    for kw in (dict(solver="cuda", iters=20, iters2=20),
+               dict(solver="ip_riccati")):
+        arrays, cfg = ext.to_device(torch.float64, "cpu", **kw)
+        assert cfg.extended
+        carry, outs = make_batched_rollout(arrays, cfg, 3)(
+            x0, refs, w, theta, gamma)
+        assert bool(carry.feasible.all()) and bool(torch.isfinite(outs.x).all())
+    plant = results_nonlinear.build_nonlinear_plant_step(cartpole_scenario())
+    x4 = plant(torch.zeros(2, 4, dtype=torch.float64),
+               torch.ones(2, 1, dtype=torch.float64), None)
+    assert x4.shape == (2, 4) and float(x4[0, 1]) > 0
+    assert torch.equal(x4, cartpole_zoh_step(
+        CartpoleParams(), torch.zeros(2, 4, dtype=torch.float64),
+        torch.ones(2, dtype=torch.float64), 0.02, 10))
     for blocked in ("jax", "rtmpc_tpu", "rtmpc_tpu.utils"):
         try:
             __import__(blocked)

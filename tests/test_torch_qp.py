@@ -288,7 +288,8 @@ def test_compare_with_plain_holds_its_bars():
 @pytest.mark.parametrize("n_p,m_p,B,iters,want_ms,ratio", [
     (40, 112, 16384, 60, 0.31504, 2.1879),
     (112, 792, 200, 200, 0.22794, 4.3022),
-    (112, 840, 200, 200, 0.24084, 4.5156)])
+    (112, 840, 200, 200, 0.24084, 4.5156),
+    (112, 1648, 200, 200, 0.45804, 8.1154)])
 def test_kernel_bound_counts_the_factored_form(n_p, m_p, B, iters, want_ms,
                                                ratio):
     """``roofline_ms`` counts the least operations an ADMM phase needs,
