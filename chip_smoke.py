@@ -97,6 +97,30 @@ Then the rest of the paper's Results, the extended tube-tracking arm
      <= 0.3 + 1e-3``;
  16. ``cartpole_zoh_step`` on the card against the CPU, float64, 1e-12.
 
+Then the single-instance controllers (run right after phase 7, on the
+flagship's setup):
+
+ 17. the served session of ``rtmpc_tpu_torch.apps.serve_controller`` at
+     its defaults (15,000 ticks in windows of 150, loss 0.4, solver
+     "cuda", float32), each window one CUDA graph replay with K1 at B=1
+     inside it: the app's four checks pass (window-mean tick p99 under
+     20 ms, no window deadline misses, feasible, ``mean |x1 - ref|`` over
+     the last second under 0.5); 2 kernel launches a tick captured, 30,000 run
+     (captured x replays); the first window through the graph equals the
+     same window run eagerly (1e-6); its first 120 ticks within 1e-3 of a
+     float64 CPU run of solver "admm" (the flagship bar of phase 7);
+     prints the window-mean tick times through the graph, the tick time
+     eagerly, the device time a tick, the per-dispatch report and the
+     dispatch floor;
+ 18. K1 at B=1, the served shape (40 + 112 columns, 60 iterations):
+     against its plain version (the small-batch bars of
+     ``kernel_bench.py``), its time beside the plain version's, its FP32
+     bound and 60 x ``torch.mm`` (1, 152) @ (152, 152);
+ 19. the six example apps (``rtmpc_tpu_torch.apps.example_*``) at full
+     length, under the dense interior point in float64 and under
+     ``--solver cuda``: each one's checks pass; their seconds and kernel
+     launches are printed.
+
 Prints the kernels' JSON record on the line before the last and, as the
 last line, ``{"ok": true, "device": {...}}``.
 """
@@ -221,9 +245,9 @@ def _product_yardstick(label, B, spec, th, iters, kernel_ms, dev):
     # about two seconds of queued launches, read while they run
     clock = sm_clock_under(lambda: admm_solve_cuda(spec, th, None, iters),
                            int(2000 / kernel_ms))
-    print("%s, B=%d, %d iterations: kernel %.4f ms; bound %.4f ms (by %s, "
+    print("%s, B=%d, %d iterations: kernel %.4f ms; bound %.4g ms (by %s, "
           "the factored form's; the kernel's composite product is %.2fx "
-          "those operations; share reached %.3f); library, products alone "
+          "those operations; share reached %.3g); library, products alone "
           "(%d x torch.mm (%d, %d) @ (%d, %d), float32, TF32 off): %.4f ms; "
           "SM clock under the kernel, and its maximum: %s"
           % (label, B, iters, kernel_ms, bound, by,
@@ -346,6 +370,110 @@ def phase_parity(setup, arrays, cfg, dev):
         _require(torch.equal(ok.Theta.cpu(), other_o.Theta.cpu()))
         _require(torch.equal(ck.feasible.cpu(), other_c.feasible.cpu()))
     _require(dx <= DX_PARITY and dx64 <= DX_PARITY, (dx, dx64))
+
+
+SERVE_TICKS = 15000
+SERVE_F64_TICKS = 120     # the ticks held to the float64 CPU run
+GRAPH_TOL = 1e-6          # graph against eager, same kernels (read: 0)
+EXAMPLES = ("regulator", "tracking", "tracking_lossy", "tube_regulator",
+            "tube_tracking", "tube_tracking_lossy")
+
+
+def phase_served_session(setup):
+    """Phase 17: the serve app at its defaults through the window graph.
+    Returns the session's kernel launches (captured x replays)."""
+    from rtmpc_tpu_torch.apps import serve_controller
+    from rtmpc_tpu_torch.ops.qp_cuda import admm_solve_cuda
+    from rtmpc_tpu_torch.parallel import make_batched_rollout
+    args = serve_controller.parse_args(["--device", "cuda"])
+    _reset_launches()              # the main path's run: counts from 0
+    t0 = time.perf_counter()
+    out = serve_controller.run(args, setup)
+    torch.cuda.synchronize()
+    raw = admm_solve_cuda.launches
+    ses = out["session"]
+    print("served session done in %.1f s: kernel launches %d run (%d "
+          "captured a window x %d replays), %d through the wrapper (warm-up,"
+          " capture, the eager window, the per-dispatch run)"
+          % (time.perf_counter() - t0, ses.launches, ses.captured_launches,
+             ses.replays, raw))
+    _require(out["ok"], "the serve app's checks")
+    _require(ses.graph is not None and ses.captured_launches == 2 * ses.window,
+             ses.captured_launches)
+    _require(ses.launches == 2 * SERVE_TICKS and raw > 0,
+             (ses.launches, raw))
+    first, eager = out["first"], out["first_eager"]
+    dg = max(_max_err(a, b) for a, b in zip(first, eager))
+    print("window 1, graph vs eager: max |diff| over all outputs %.3e" % dg)
+    _require(dg <= GRAPH_TOL, dg)
+    # the flagship bar: the first ticks against float64 on the CPU
+    refs, theta, gamma, w = out["inputs"]
+    n = SERVE_F64_TICKS
+    a64, c64 = setup.to_device(torch.float64, "cpu", solver="admm",
+                               **serve_controller.SCHEDULE)
+    _, o64 = make_batched_rollout(a64, c64, n)(
+        torch.zeros(1, 2, dtype=torch.float64),
+        *(torch.tensor(a[:n])[None] for a in (refs, w)),
+        *(torch.tensor(a[:n], dtype=torch.int32)[None]
+          for a in (theta, gamma)))
+    dx = _max_err(first.x[0, :n], o64.x[0])
+    print("first %d ticks against solver admm in float64 on the CPU: max "
+          "|dx| %.3e (bar %g; K1 at B=1 runs its one 152-term chain, see "
+          "phase 18)" % (n, dx, DX_PARITY))
+    _require(dx <= DX_PARITY, dx)
+    _require(torch.equal(first.Theta[:, :n].cpu(), o64.Theta))
+    pt = out["per_tick_ms"]
+    print("window-mean tick time through the graph: p50 %.4f p99 %.4f ms; "
+          "eagerly %.4f ms a tick; device time a tick %.4f ms; per dispatch "
+          "(the per-tick tail) p99 %.4f ms; dispatch floor %.4f ms"
+          % (np.median(pt), np.quantile(pt, 0.99), out["eager_per_tick_ms"],
+             out["device_per_tick_ms"], out["latency"]["p99_ms"],
+             out["floor_ms"]))
+    return ses.launches, ses.captured_launches
+
+
+def phase_k1_b1(arrays, arrays64, dev):
+    """Phase 18: K1 at the served shape, B=1.  Returns (max error, kernel
+    ms, plain ms, (bound ms, bound by, torch.mm ms))."""
+    from rtmpc_tpu_torch.ops.kernel_bench import (F64_SMALL_B, Y_ATOL_SMALL_B,
+                                                  Z_ATOL)
+    from rtmpc_tpu_torch.ops.kernel_bench import time_ms as _time_ms
+    from rtmpc_tpu_torch.ops.qp_cuda import (_admm_solve_cuda_plain,
+                                             admm_solve_cuda)
+    rng = np.random.default_rng(18)
+    th = torch.tensor(rng.uniform(-2, 2, (1, 4)), dtype=torch.float32,
+                      device=dev)
+    specs, specs64 = ((a.admm, a.admm2) for a in (arrays, arrays64))
+    err = _compare(specs, specs64, th, th, True, (ITERS, ITERS2),
+                   (Z_ATOL, Y_ATOL_SMALL_B), label="served shape",
+                   f64_bars=F64_SMALL_B)
+    t = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        fn = admm_solve_cuda if which == "kernel" else _admm_solve_cuda_plain
+        t[which].append(_time_ms(lambda: fn(arrays.admm, th, None, ITERS),
+                                 reps=50))
+    print("one phase, B=1, 60 iterations: kernel %s ms, plain %s ms"
+          % (t["kernel"], t["plain"]))
+    ms, plain_ms = (float(np.mean(t[k])) for k in ("kernel", "plain"))
+    return err, ms, plain_ms, _product_yardstick(
+        "served shape 40+112", 1, arrays.admm, th, ITERS, ms, dev)
+
+
+def phase_examples():
+    """Phase 19: the six examples at full length, dense IP in float64 and
+    the kernel."""
+    for name in EXAMPLES:
+        mod = importlib.import_module("rtmpc_tpu_torch.apps.example_" + name)
+        for solver in ("ip", "cuda"):
+            args = mod.parse_args(["--device", "cuda", "--solver", solver])
+            out = mod.run(args)
+            print("example_%s --solver %s (%s): %s in %.3f s, %d kernel "
+                  "launches" % (name, solver, args.dtype,
+                                "checks pass" if out["ok"] else "FAIL",
+                                out["seconds"], out["launches"]))
+            _require(out["ok"], (name, solver))
+            _require((out["launches"] > 0) == (solver == "cuda"),
+                     (name, solver, out["launches"]))
 
 
 def _cartpole_thetas(sc, B, rng, dev, dtype):
@@ -726,6 +854,18 @@ def main():
     phase_parity(setup, arrays, cfg, dev)
     record("admm_solve_cuda (admm_kernel, n_p+m_p <= 192)", launches, err,
            ms, plain_ms, bound)
+
+    # the single-instance controllers
+    t0 = time.perf_counter()
+    served, captured = phase_served_session(setup)
+    b1 = phase_k1_b1(arrays, arrays64, dev)
+    record("admm_solve_cuda (admm_kernel at B=1: the served session)",
+           served, *b1)
+    kernels[-1]["launches_counted_as"] = (
+        "%d captured a window x %d replays of its CUDA graph"
+        % (captured, served // captured))
+    phase_examples()
+    print("phases 17-19 took %.1f s" % (time.perf_counter() - t0))
 
     # the Fig. 3a slice
     t0 = time.perf_counter()

@@ -18,16 +18,18 @@ utils     : polytope toolbox, discrete-time synthesis (dlqr/dlyap/c2d), the
             binding of the native LP library.
 sets      : invariant-set algorithms (Rakovic mRPI, Darup RPI, Gilbert-Tan
             maximal admissible set), constraint tightening.
-ops       : precision policy, QP assembly, batched ADMM, infeasibility
-            certificates, the CUDA kernel wrapper, the structured interior
-            point.
-models    : host setup of the tube-tracking and tracking controllers, the
-            cartpole's linearization, and their freeze into tensors.
+ops       : precision policy, QP assembly, batched ADMM and its polish,
+            infeasibility certificates, the CUDA kernel wrapper, the dense
+            and the structured interior points.
+models    : host setup of the five controller variants, the cartpole's
+            plant, and their freeze into tensors.
 protocol  : lossy channel draws, consistent/smart actuator, estimator.
-parallel  : the batched closed-loop rollout engine and Monte-Carlo sweeps.
-apps      : ``results_linear`` (the paper's Fig. 3a sweep) and its
-            scenario.
-data      : the committed draws of the Fig. 3a sweep at seed 0.
+parallel  : the batched closed-loop rollout engine, the direct loop,
+            Monte-Carlo sweeps, the device-resident session (CUDA graphs)
+            and the latency timers.
+apps      : the paper's Results apps, the served 50 Hz session and the
+            reference's six example loops.
+data      : the committed draws of the Results sweeps at seed 0.
 """
 
 from .ops import precision as _precision  # noqa: F401  (applies the policy)

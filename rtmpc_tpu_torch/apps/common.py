@@ -24,8 +24,11 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 # The JAX Results apps' ADMM schedule (``rtmpc_tpu/apps/common.py:103-129``
-# at ``admm_iters=400``), without polish: 200 + 200 iterations.
-ADMM_SCHEDULE = dict(iters=200, iters2=200, alpha=1.8, rho2_scale=0.2)
+# at ``admm_iters=400``): 200 + 200 iterations, polished in float64 alone.
+RESULTS_ADMM_ITERS = 400
+ADMM_SCHEDULE = dict(iters=RESULTS_ADMM_ITERS // 2,
+                     iters2=RESULTS_ADMM_ITERS - RESULTS_ADMM_ITERS // 2,
+                     alpha=1.8, rho2_scale=0.2)
 IP_ITERS = 30
 
 DATA_DIR = os.path.join(REPO_ROOT, "rtmpc_tpu_torch", "data")
@@ -46,7 +49,17 @@ ROWS_RTOL = 1e-4
 ROWS_RTOL_PRINTED = 0.02
 
 
-def make_parser(description: str) -> argparse.ArgumentParser:
+# The examples' solvers: the dense interior point (the JAX examples'
+# default on the CPU) and the two ADMM solvers.
+EXAMPLE_SOLVERS = ("ip", "cuda", "admm")
+
+
+def make_parser(description: str, default_solver: str = "ip_riccati",
+                solvers=("ip_riccati", "ip", "cuda", "admm")
+                ) -> argparse.ArgumentParser:
+    """The apps' common flags; ``default_solver`` is ``ip_riccati`` for the
+    Results apps and ``ip`` for the examples (the JAX apps' default on the
+    CPU)."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; there is no "
@@ -54,11 +67,12 @@ def make_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--dtype", default=None, choices=["float32", "float64"],
                    help="engine dtype: default float64, float32 under "
                         "--solver cuda (the kernel's type)")
-    p.add_argument("--solver", default="ip_riccati",
-                   choices=["ip_riccati", "cuda", "admm"],
+    p.add_argument("--solver", default=default_solver, choices=solvers,
                    help="QP solver: 'ip_riccati' (structured interior "
-                        "point, the accuracy mode), 'cuda' (the ADMM "
-                        "kernel, 200+200 iterations), 'admm' (the same "
+                        "point, the accuracy mode of the Results apps), "
+                        "'ip' (dense interior point, the accuracy mode of "
+                        "the examples), 'cuda' (the ADMM kernel, two "
+                        "phases; polished in float64), 'admm' (the same "
                         "ADMM in plain PyTorch)")
     p.add_argument("--quick", action="store_true",
                    help="shrink the workload for smoke runs")
@@ -97,11 +111,86 @@ def resolve(args) -> torch.device:
     return dev
 
 
-def solver_kwargs(args) -> dict:
-    """``to_device`` solver arguments for the parsed flags."""
+def solver_kwargs(args, ip_iters: int = IP_ITERS,
+                  admm_iters: int = 120) -> dict:
+    """``to_device`` solver arguments for the parsed flags
+    (``rtmpc_tpu/apps/common.py:103-129``): the interior points at
+    ``ip_iters`` ("ip" with ``polish``, which it ignores, as in the JAX
+    package); the ADMM solvers in two phases of ``admm_iters`` together
+    (alpha 1.8, rho2 scale 0.2), polished where the dtype is float64."""
+    if args.solver == "ip":
+        return dict(solver="ip", ip_iters=ip_iters, polish=True)
     if args.solver == "ip_riccati":
-        return dict(solver="ip_riccati", ip_iters=IP_ITERS)
-    return dict(solver=args.solver, **ADMM_SCHEDULE)
+        return dict(solver="ip_riccati", ip_iters=ip_iters)
+    return dict(solver=args.solver, iters=admm_iters // 2,
+                iters2=admm_iters - admm_iters // 2, alpha=1.8,
+                rho2_scale=0.2, polish=args.dtype == "float64")
+
+
+def check_tol(args) -> float:
+    """The tolerance of the apps' constraint and invariant checks
+    (``rtmpc_tpu/apps/common.py:132-139``): 1e-6 for an interior point in
+    float64 (the reference's Clarabel at 1e-7), else 2.5e-3 (ADMM to its
+    solver tolerance, or float32)."""
+    return 1e-6 if (args.solver in ("ip", "ip_riccati")
+                    and args.dtype == "float64") else 2.5e-3
+
+
+# The double integrator of the reference's examples and the serve app.
+DI_A = np.array([[1.0, 1.0], [0.0, 1.0]])
+DI_B = np.array([[0.0], [1.0]])
+
+
+def example_refs(T: int) -> np.ndarray:
+    """The examples' piecewise reference ``x1 = 5, -9, 9, 4`` in quarters of
+    ``T`` (the -9/9 quarters lie outside X), ``(T, 2)``."""
+    refs = np.zeros((T, 2))
+    seg = T // 4
+    refs[:seg, 0] = 5.0
+    refs[seg:2 * seg, 0] = -9.0
+    refs[2 * seg:3 * seg, 0] = 9.0
+    refs[3 * seg:, 0] = 4.0
+    return refs
+
+
+def example_draws(args, T: int, w_half=None, p_loss=None, draws=None):
+    """An example's random inputs, as ``(T, .)`` tensors on the CPU:
+    ``w`` uniform in ``+-w_half`` (if given) and the loss masks ``theta``,
+    ``gamma`` at loss probability ``p_loss`` (if given), from a
+    ``torch.Generator`` at ``--seed``, masks first.  ``draws`` (a dict of
+    arrays, e.g. the JAX example's own draws) replaces them."""
+    from ..protocol import draw_disturbances, draw_loss_masks
+    if draws is not None:
+        return {k: torch.tensor(np.asarray(v)) for k, v in draws.items()}
+    g = torch.Generator().manual_seed(args.seed)
+    out = {}
+    if p_loss is not None:
+        out["theta"], out["gamma"] = draw_loss_masks(g, T, p_loss, p_loss)
+    if w_half is not None:
+        out["w"] = draw_disturbances(g, T, -np.asarray(w_half),
+                                     np.asarray(w_half))
+    return out
+
+
+def timed_rollout(fn, dev: torch.device):
+    """``(result, seconds, kernel launches)`` of one call of ``fn``,
+    synchronized on the card; prints them."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    before = admm_solve_cuda.launches
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    launches = admm_solve_cuda.launches - before
+    print(f"rollout: {seconds:.3f} s, {launches} kernel launches")
+    return out, seconds, launches
+
+
+def host(t: torch.Tensor) -> np.ndarray:
+    """A tensor of one rollout (batch 1) as a float64 numpy array."""
+    return t[0].double().cpu().numpy()
 
 
 def device_name(dev: torch.device) -> str:
@@ -284,7 +373,7 @@ def run_labelled_sweep(args, app: str, arms, *, setups=None, plant_step=None,
     names = [a[1] for a in arms]
     if setups is None:
         setups = cartpole_controllers(sc, names)
-    kw = solver_kwargs(args)
+    kw = solver_kwargs(args, admm_iters=RESULTS_ADMM_ITERS)
     frozen = {label: setups[name].to_device(dtype, dev, **kw)
               for label, name, _, _ in arms}
     print(f"setups done in {time.perf_counter() - t0:.1f}s (QP rows "

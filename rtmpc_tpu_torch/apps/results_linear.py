@@ -2,7 +2,7 @@
 of ``rtmpc_tpu/apps/results_linear.py``).
 
     python3 -m rtmpc_tpu_torch.apps.results_linear --device cuda \\
-        [--solver ip_riccati|cuda|admm] [--dtype float64] [--n-mc 20] \\
+        [--solver ip_riccati|ip|cuda|admm] [--dtype float64] [--n-mc 20] \\
         [--quick] [--seed 0] [--draws PATH] [--checkpoint PATH] \\
         [--n-chunks 1] [--save-json PATH]
 
@@ -36,8 +36,8 @@ import time
 import numpy as np
 import torch
 
-from .common import (DATA_DIR, FULL_PROBS, REPO_ROOT, SEED0_SOURCE,
-                     add_sweep_args, cartpole_controllers, check,
+from .common import (DATA_DIR, FULL_PROBS, REPO_ROOT, RESULTS_ADMM_ITERS,
+                     SEED0_SOURCE, add_sweep_args, cartpole_controllers, check,
                      device_name, load_compare_linear, make_parser, resolve,
                      run_arms, save_summary_json, solver_kwargs, sweep_draws)
 from .scenarios import cartpole_scenario
@@ -71,7 +71,7 @@ def run(args, setups=None) -> dict:
     if setups is None:
         setups = cartpole_controllers(sc, ("tube", "track")).values()
     tube, track = setups
-    kw = solver_kwargs(args)
+    kw = solver_kwargs(args, admm_iters=RESULTS_ADMM_ITERS)
     arrays_tube, cfg_tube = tube.to_device(dtype, dev, **kw)
     arrays_track, cfg_track = track.to_device(dtype, dev, **kw)
     print(f"setup done in {time.perf_counter() - t0:.1f}s "

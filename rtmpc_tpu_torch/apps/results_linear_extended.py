@@ -2,7 +2,7 @@
 of ``rtmpc_tpu/apps/results_linear_extended.py``, paper Section IV.F).
 
     python3 -m rtmpc_tpu_torch.apps.results_linear_extended --device cuda \\
-        [--solver ip_riccati|cuda|admm] [--dtype float64] [--n-mc 20] \\
+        [--solver ip_riccati|ip|cuda|admm] [--dtype float64] [--n-mc 20] \\
         [--quick] [--seed 0] [--draws PATH] [--checkpoint PATH] \\
         [--n-chunks 1] [--save-json PATH]
 

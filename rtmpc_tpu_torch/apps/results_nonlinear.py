@@ -2,7 +2,7 @@
 of ``rtmpc_tpu/apps/results_nonlinear.py``).
 
     python3 -m rtmpc_tpu_torch.apps.results_nonlinear --device cuda \\
-        [--extended] [--solver ip_riccati|cuda|admm] [--dtype float64] \\
+        [--extended] [--solver ip_riccati|ip|cuda|admm] [--dtype float64] \\
         [--n-mc 20] [--quick] [--seed 0] [--draws PATH] \\
         [--checkpoint PATH] [--n-chunks 1] [--save-json PATH]
 

@@ -9,12 +9,15 @@ anything of ``rtmpc_tpu``.  ``MPCSetup.to_device``
 freezes it into ``ControllerArrays`` (tensors) and ``ControllerConfig``
 (static metadata) for the rollout engine.
 
-Ported so far: the tube-tracking variant (``TubeTrackingMPC.py``, the
+All five of the reference's controller variants: the regulator
+(``RegulatorMPC.py``), the tube regulator (``TubeRegulatorMPC.py``,
+Mayne 2005), the tube-tracking variant (``TubeTrackingMPC.py``, the
 flagship of ``bench.py`` and the robust arm of the Results apps), the
 tracking variant (``TrackingMPC.py``, the non-robust arm) and the extended
 tube-tracking variant (``ExtendedTubeTrackingMPC``, paper Section IV.F: a
-second, packet-received QP whose initial tube is ``Z - W``).  The regulator
-variants and condensed templates are not ported yet.
+second, packet-received QP whose initial tube is ``Z - W``).  Condensed
+templates are not ported.  Invalid arguments raise ``ValueError`` (the
+reference asserts).
 
 ``arrays_from_numpy`` bridges the other way: it builds the port's arrays
 from the JAX package's ``ControllerArrays`` converted to numpy.
@@ -34,20 +37,22 @@ from ..utils.polytope import Polytope, box, pont_diff
 from ..utils.synthesis import dlqr, dlyap
 from ..ops.assembly import QPTemplate, build_mpc_qp
 from ..ops.precision import DEFAULT_DTYPE
+from ..ops.ip import IPSpec, prepare_ip
 from ..ops.ip_riccati import RiccatiIPSpec, prepare_ip_riccati
 from ..ops.qp import PAD_TO, ADMMSpec, prepare_admm
 from ..tree import tree_to
 
 __all__ = ["MPCSetup", "ControllerArrays", "ControllerConfig",
-           "setup_tracking", "setup_tube_tracking",
-           "setup_extended_tube_tracking", "flagship_setup",
-           "arrays_from_numpy", "spec_from_numpy", "ric_spec_from_numpy",
-           "SOLVERS"]
+           "setup_regulator", "setup_tracking", "setup_tube_regulator",
+           "setup_tube_tracking", "setup_extended_tube_tracking",
+           "flagship_setup", "arrays_from_numpy", "spec_from_numpy",
+           "ric_spec_from_numpy", "ip_spec_from_numpy", "SOLVERS"]
 
 # "admm": batched PyTorch ADMM (ops/qp.py); "cuda": the fused CUDA kernel
 # (ops/qp_cuda.py), which runs its plain PyTorch version on CPU tensors;
-# "ip_riccati": the structured interior point (ops/ip_riccati.py).
-SOLVERS = ("admm", "cuda", "ip_riccati")
+# "ip": the dense interior point (ops/ip.py); "ip_riccati": the structured
+# interior point (ops/ip_riccati.py).
+SOLVERS = ("admm", "cuda", "ip", "ip_riccati")
 
 # The JAX package places the [xt | zt] output slots of its composites at
 # 128-lane boundaries for the TPU (rtmpc_tpu/ops/qp.py:272-286).
@@ -94,42 +99,53 @@ class MPCSetup:
     def to_device(self, dtype: torch.dtype = DEFAULT_DTYPE, device="cpu",
                   iters: int = 100, iters2: int = 0, rho2_scale: float = 0.1,
                   alpha: float = 1.6, solver: str = "admm",
-                  ip_iters: int = 25):
+                  ip_iters: int = 25, polish: bool = False,
+                  probe_thetas: Optional[np.ndarray] = None):
         """Freeze into ``(ControllerArrays, ControllerConfig)``.
 
         ``solver`` is one of ``SOLVERS``.  The ADMM solvers get the JAX
         package's preparation: rho is tuned at ``max(100, min(iters +
-        iters2, 600))`` iterations, and ``iters2 > 0`` adds the phase-2
-        spec at ``rho * rho2_scale``.  Solver "ip_riccati" gets the
-        structured IP's spec (``arrays.ric``) from the uncondensed template
-        and runs at most ``ip_iters`` iterations a solve; it builds no
-        ADMM spec (``arrays.admm`` is None).
+        iters2, 600))`` iterations on ``probe_thetas`` (``prepare_admm``'s
+        default probes if None), ``iters2 > 0`` adds the phase-2 spec at
+        ``rho * rho2_scale``, and ``polish`` polishes the last phase's
+        primal (``ops/qp.py:apply_polish``).  Solver "ip" gets the dense
+        interior point's spec (``arrays.ip``), solver "ip_riccati" the
+        structured IP's (``arrays.ric``) from the uncondensed template;
+        both run at most ``ip_iters`` iterations a solve and build no ADMM
+        spec (``arrays.admm`` is None); ``polish`` does nothing there, as
+        in the JAX package.
 
         An extended setup (``template_pr`` set) also gets the
-        packet-received QP's specs, ``admm_pr``/``admm2_pr`` or ``ric_pr``,
-        prepared from ``template_pr`` on its own (its rho is tuned on its
-        own); any other setup keeps them None.
+        packet-received QP's specs, ``admm_pr``/``admm2_pr``, ``ip_pr`` or
+        ``ric_pr``, prepared from ``template_pr`` on its own (its rho is
+        tuned on its own); any other setup keeps them None.
         """
         if solver not in SOLVERS:
             raise NotImplementedError(
-                f"solver {solver!r} is not ported yet (ported: {SOLVERS})")
+                f"solver {solver!r} has no counterpart in the port (its "
+                f"solvers: {SOLVERS}; the Pallas kernel's is 'cuda')")
         tmpl = self.template
 
         def prepare(t):
-            """``(admm, admm2, ric)`` of one template (None: all None)."""
+            """``(admm, admm2, ip, ric)`` of one template (None: all
+            None)."""
             if t is None:
-                return None, None, None
+                return None, None, None, None
+            if solver == "ip":
+                return None, None, prepare_ip(t, dtype=dtype,
+                                              device=device), None
             if solver == "ip_riccati":
-                return None, None, prepare_ip_riccati(t, dtype=dtype,
-                                                      device=device)
+                return None, None, None, prepare_ip_riccati(
+                    t, dtype=dtype, device=device)
             spec = prepare_admm(
                 t, alpha=alpha, dtype=dtype, device=device,
                 tune_iters=max(100, min(iters + iters2, 600)),
-                rho2_scale=rho2_scale if iters2 > 0 else None)
-            return (*(spec if iters2 > 0 else (spec, spec)), None)
+                rho2_scale=rho2_scale if iters2 > 0 else None,
+                probe_thetas=probe_thetas)
+            return (*(spec if iters2 > 0 else (spec, spec)), None, None)
 
-        admm, admm2, ric = prepare(tmpl)
-        admm_pr, admm2_pr, ric_pr = prepare(self.template_pr)
+        admm, admm2, ip, ric = prepare(tmpl)
+        admm_pr, admm2_pr, ip_pr, ric_pr = prepare(self.template_pr)
 
         # tube cross-section H-rep for membership checks, padded; a setup
         # without a tube gets one dummy row
@@ -146,22 +162,24 @@ class MPCSetup:
         def tensor(a):
             return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
-        Kp = (self.ancillary_gain() if self.kind.startswith("tube")
-              else self.K)
+        # a regulator has no steady-state gain: its terminal law is zero
+        K = self.K if self.K is not None else np.zeros((self.nu, self.nx))
+        Kp = self.ancillary_gain() if self.kind.startswith("tube") else K
         arrays = ControllerArrays(
             admm=admm, admm2=admm2,
             A=tensor(self.A), B=tensor(self.B),
-            K_ss=tensor(self.K), K_plant=tensor(Kp),
+            K_ss=tensor(K), K_plant=tensor(Kp),
             Hz=tensor(Hz_p), hz=tensor(hz_p), ric=ric,
-            admm_pr=admm_pr, admm2_pr=admm2_pr, ric_pr=ric_pr)
+            admm_pr=admm_pr, admm2_pr=admm2_pr, ric_pr=ric_pr,
+            ip=ip, ip_pr=ip_pr)
         return arrays, _config(self.nx, self.nu, self.N, tmpl, iters, iters2,
-                               solver, ip_iters,
+                               solver, ip_iters, polish=polish,
                                extended=self.template_pr is not None)
 
 
 class ControllerArrays(NamedTuple):
     """Everything the per-step function reads, as tensors."""
-    admm: Optional[ADMMSpec]   # phase-1 spec (None under solver ip_riccati)
+    admm: Optional[ADMMSpec]   # phase-1 spec (None under the IP solvers)
     admm2: Optional[ADMMSpec]  # phase-2 spec (alias of admm when iters2 == 0)
     A: torch.Tensor            # (nx, nx) plant/nominal model
     B: torch.Tensor            # (nx, nu)
@@ -170,7 +188,9 @@ class ControllerArrays(NamedTuple):
     Hz: torch.Tensor           # (mz_p, nx) tube H-rep (padded)
     hz: torch.Tensor           # (mz_p,)
     ric: Optional[RiccatiIPSpec] = None   # structured IP (solver ip_riccati)
+    ip: Optional[IPSpec] = None           # dense IP (solver ip)
     # the packet-received QP of an extended setup (None otherwise)
+    ip_pr: Optional[IPSpec] = None
     admm_pr: Optional[ADMMSpec] = None
     admm2_pr: Optional[ADMMSpec] = None
     ric_pr: Optional[RiccatiIPSpec] = None
@@ -192,20 +212,21 @@ class ControllerConfig:
     solver: str
     u_off: int                 # offset of u_0 in the QP variable layout
     xbar_off: int              # offset of the artificial steady state xbar
-    ubar_off: int              # offset of ubar
-    ip_iters: int = 25         # interior-point iteration cap (ip_riccati)
+    ubar_off: int              # offset of ubar (both -1 without tracking)
+    ip_iters: int = 25         # interior-point iterations (ip, ip_riccati)
     extended: bool = False     # two QPs picked by the previous step's gamma
+    polish: bool = False       # polish the last ADMM phase's primal
 
 
-def _config(nx, nu, N, tmpl, iters, iters2, solver, ip_iters,
+def _config(nx, nu, N, tmpl, iters, iters2, solver, ip_iters, polish=False,
             extended=False) -> ControllerConfig:
     return ControllerConfig(
         nx=nx, nu=nu, N=N, n=tmpl.n, tracking=tmpl.tracking,
         iters=iters, iters2=iters2, solver=solver, ip_iters=ip_iters,
-        extended=extended,
+        extended=extended, polish=polish,
         u_off=nx * (N + 1),
-        xbar_off=nx * (N + 1) + nu * N,
-        ubar_off=nx * (N + 1) + nu * N + nx)
+        xbar_off=(nx * (N + 1) + nu * N) if tmpl.tracking else -1,
+        ubar_off=(nx * (N + 1) + nu * N + nx) if tmpl.tracking else -1)
 
 
 def _np_tensor(a, dtype, device):
@@ -237,6 +258,14 @@ def ric_spec_from_numpy(np_spec, dtype: torch.dtype = torch.float64,
                             for f in RiccatiIPSpec._fields})
 
 
+def ip_spec_from_numpy(np_spec, dtype: torch.dtype = torch.float64,
+                       device="cpu") -> IPSpec:
+    """The port's dense-IP ``IPSpec`` from the JAX package's, given as numpy
+    leaves (the fields are the same)."""
+    return IPSpec(**{f: _np_tensor(getattr(np_spec, f), dtype, device)
+                     for f in IPSpec._fields})
+
+
 def arrays_from_numpy(np_arrays, dtype: torch.dtype = torch.float64,
                       device="cpu") -> ControllerArrays:
     """The port's ``ControllerArrays`` from the JAX package's, given as
@@ -244,27 +273,29 @@ def arrays_from_numpy(np_arrays, dtype: torch.dtype = torch.float64,
 
     Keeps ``admm``/``admm2`` and ``admm_pr``/``admm2_pr`` (through
     ``spec_from_numpy``; the JAX package gives a setup without a
-    packet-received QP copies of ``admm``/``admm2`` there), ``ric`` and
-    ``ric_pr`` where the JAX package built them, and the model matrices;
-    drops the dense interior point's ``ip``."""
+    packet-received QP copies of ``admm``/``admm2`` there), ``ip`` and
+    ``ip_pr`` (likewise copies of ``ip`` there), ``ric`` and ``ric_pr``
+    where the JAX package built them, and the model matrices."""
     def tensor(a):
         return _np_tensor(a, dtype, device)
 
     def admm(f):
         return spec_from_numpy(getattr(np_arrays, f), dtype, device)
 
-    def ric(f):
+    def spec_or_none(f, convert):
         spec = getattr(np_arrays, f)
-        return (None if spec is None
-                else ric_spec_from_numpy(spec, dtype, device))
+        return None if spec is None else convert(spec, dtype, device)
 
     return ControllerArrays(
         admm=admm("admm"), admm2=admm("admm2"),
         A=tensor(np_arrays.A), B=tensor(np_arrays.B),
         K_ss=tensor(np_arrays.K_ss), K_plant=tensor(np_arrays.K_plant),
-        Hz=tensor(np_arrays.Hz), hz=tensor(np_arrays.hz), ric=ric("ric"),
+        Hz=tensor(np_arrays.Hz), hz=tensor(np_arrays.hz),
+        ric=spec_or_none("ric", ric_spec_from_numpy),
         admm_pr=admm("admm_pr"), admm2_pr=admm("admm2_pr"),
-        ric_pr=ric("ric_pr"))
+        ric_pr=spec_or_none("ric_pr", ric_spec_from_numpy),
+        ip=spec_or_none("ip", ip_spec_from_numpy),
+        ip_pr=spec_or_none("ip_pr", ip_spec_from_numpy))
 
 
 # ---------------------------------------------------------------------------
@@ -324,6 +355,62 @@ def _tube_common(A, B, Q, R, W, X, U, eps_var, rpi_method, K_ancillary):
                        eps_var=eps_var, rpi_method=rpi_method)
     Xc, Uc = tighten_constraints(X, U, Z, K_anc)
     return K, P, Acl, K_anc, Z, Xc, Uc
+
+
+def _checked(A, B, Q, R, N):
+    """The model and weights as float64 arrays; raises ``ValueError`` on a
+    horizon below 1 or shapes that do not fit together."""
+    A, B = np.asarray(A, float), np.asarray(B, float)
+    Q, R = np.asarray(Q, float), np.atleast_2d(np.asarray(R, float))
+    nx, nu = A.shape[0], B.shape[1] if B.ndim == 2 else -1
+    if int(N) != N or N < 1:
+        raise ValueError(f"the horizon N must be a positive integer, got {N}")
+    if A.shape != (nx, nx) or B.shape != (nx, nu) or Q.shape != (nx, nx) \
+            or R.shape != (nu, nu):
+        raise ValueError(f"A {A.shape}, B {B.shape}, Q {Q.shape} and R "
+                         f"{R.shape} do not fit one system")
+    return A, B, Q, R
+
+
+def setup_regulator(A, B, Q, R, N, X: Optional[Polytope] = None,
+                    U: Optional[Polytope] = None) -> MPCSetup:
+    """RegulatorMPC (``RegulatorMPC.py``): regulate to the origin, no
+    terminal ingredients (the reference's own TODO at :74), fixed initial
+    state; ``X`` and ``U`` optional."""
+    A, B, Q, R = _checked(A, B, Q, R, N)
+    tmpl = build_mpc_qp(
+        A, B, Q, R, N,
+        Hx=None if X is None else X.A, hx=None if X is None else X.b,
+        Hu=None if U is None else U.A, hu=None if U is None else U.b,
+        init_mode="fixed")
+    return MPCSetup(kind="regulator", A=A, B=B, Q=Q, R=R, N=int(N),
+                    X=X, U=U, template=tmpl, fixed_initial_state=True)
+
+
+def setup_tube_regulator(A, B, Q, R, N, X: Polytope, U: Polytope,
+                         W: Polytope, eps_var: float = 1.9e-5,
+                         rpi_method: int = 0) -> MPCSetup:
+    """TubeRegulatorMPC (Mayne 2005, ``TubeRegulatorMPC.py``): tightened
+    constraints, terminal cost and the Gilbert-Tan set of the tightened
+    ``(x, u = -K x)`` polytope, initial state in the tube ``Z`` around
+    the nominal one."""
+    A, B, Q, R = _checked(A, B, Q, R, N)
+    if X is None or U is None or W is None:
+        raise ValueError("the tube regulator needs X, U and W")
+    K, P, Acl, _, Z, Xc, Uc = _tube_common(
+        A, B, Q, R, W, X, U, eps_var, rpi_method, None)
+    # ``TubeRegulatorMPC.determine_Xf`` :91-107
+    Gxu = np.vstack([Xc.A, -Uc.A @ K])
+    fxu = np.concatenate([Xc.b, Uc.b])
+    Xf = max_admissible_set(Acl, Polytope(Gxu, fxu))
+    tmpl = build_mpc_qp(
+        A, B, Q, R, N, P_term=P,
+        Hx=Xc.A, hx=Xc.b, Hu=Uc.A, hu=Uc.b,
+        HxN=Xf.A, hxN=Xf.b,
+        init_mode="tube", Hz=Z.A, hz=Z.b)
+    return MPCSetup(kind="tube_regulator", A=A, B=B, Q=Q, R=R, N=int(N),
+                    K=K, P=P, X=X, U=U, W=W, Z=Z, Xc=Xc, Uc=Uc, Xf=Xf,
+                    template=tmpl)
 
 
 def setup_tracking(A, B, Q, R, N, X: Polytope, U: Polytope,

@@ -4,7 +4,8 @@
 
 Builds the kernel, holds it against its plain PyTorch version on random
 QPs (``qp_cuda._synthetic_spec``) at the shapes of the main paths (the
-flagship's 40 + 112 columns at B=16384, the cartpole's 112 + 792 and
+flagship's 40 + 112 columns at B=16384 and, for the served session, at
+B=1, the cartpole's 112 + 792 and
 112 + 840 and the extended controller's 112 + 1648 at B=200), at the widest
 shape of each path and at ragged and tiny batches, and times one phase at
 the main shapes with CUDA events beside
@@ -35,6 +36,7 @@ PEAK_BYTES_PER_S = 3.35e12
 
 # (label, n_p, m_p, ntheta, batch, iterations) of the main paths
 MAIN_SHAPES = (("flagship 40+112", 40, 112, 4, 16384, 60),
+               ("served session 40+112, B=1", 40, 112, 4, 1, 60),
                ("cartpole tube 112+792", 112, 792, 8, 200, 200),
                ("cartpole tracking 112+840", 112, 840, 8, 200, 200),
                ("cartpole extended 112+1648", 112, 1648, 8, 200, 200))
@@ -117,19 +119,21 @@ def roofline_ms(B: int, n_p: int, m_p: int, ntheta: int, iters: int):
     peak and its bytes (every input read once, every output written once)
     over the memory rate.
 
-    The operations are the least the function needs from its inputs, the
-    factored form ``xt = (sigma x - q + (rho z - y) As) Kinv'``, ``zt = xt
-    As'`` (``Kinv'`` is ``Kcat``'s first block): ``2 B (n^2 + 2 n m)`` an
-    iteration, plus the residuals' products; the elementwise update is
-    left out.  The kernel runs the composite form on purpose, one product
-    ``2 B (n + m)^2`` an iteration (``composite_over_factored`` times the
-    bound's operations), so it cannot reach this bound as it is built."""
+    Both sides count the least work the function needs from its inputs,
+    the factored form ``xt = (sigma x - q + (rho z - y) As) Kinv'``, ``zt =
+    xt As'`` (``Kinv'`` is ``Kcat``'s first block).  Operations: ``2 B (n^2
+    + 2 n m)`` an iteration, plus the residuals' products; the elementwise
+    update is left out.  Bytes: ``Kinv``, ``As`` and ``Ps``, the affine
+    maps of q, l and u in theta, rho and its inverse, sigma, theta, the
+    state (x, y, z) in and out and the two residuals.  The kernel runs the
+    composite form on purpose, one product ``2 B (n + m)^2`` an iteration
+    (``composite_over_factored`` times the bound's operations) that reads
+    the composites ``Gxc``, ``Gsc`` and ``Kcat``, so it cannot reach this
+    bound as it is built."""
     flops = 2.0 * B * (n_p * n_p + 2 * n_p * m_p) * iters \
         + 2.0 * B * (2 * n_p * m_p + n_p * n_p)
-    nm = n_p + m_p
     floats = (B * (ntheta + 2 * (n_p + 2 * m_p) + 2)     # theta, state x2, r
-              + 2 * nm * nm + n_p * nm                    # Gxc, Gsc, Kcat
-              + m_p * n_p + n_p * n_p                     # As, Ps
+              + n_p * n_p + m_p * n_p + n_p * n_p         # Kinv, As, Ps
               + (n_p + 2 * m_p) * (ntheta + 1) + 2 * m_p + 1)
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     t_bytes = 4.0 * floats / PEAK_BYTES_PER_S * 1e3
@@ -276,7 +280,8 @@ def main() -> int:
     for line in log.splitlines():
         print("  " + line.strip())
 
-    check_shapes(WIDTH_SHAPES + tuple(s[1:3] for s in MAIN_SHAPES), dev)
+    check_shapes(tuple(dict.fromkeys(
+        WIDTH_SHAPES + tuple(s[1:3] for s in MAIN_SHAPES))), dev)
     for label, n_p, m_p, nt, B, iters in MAIN_SHAPES:
         spec = _synthetic_spec(n_p, m_p, nt, seed=1, device=dev)
         th = thetas(B, nt, 2, dev)

@@ -14,8 +14,12 @@ its plain PyTorch version).
 ``infeasibility_certificates`` is the JAX package's OSQP-style primal and
 dual infeasibility test, batched.
 
-Not ported yet: the active-set polish and the residual-based early exit;
-asking for them raises ``NotImplementedError``.
+``polish_solution`` is the JAX package's OSQP-style active-set polish,
+batched: one regularised KKT solve per instance on its detected active
+set, kept only where it lowers the KKT residual; ``admm_solve(...,
+polish=True)`` and the rollout engine (``cfg.polish``) apply it after the
+last ADMM phase.  The residual-based early exit (``early_tol``) is not
+ported: asking for it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from .precision import DEFAULT_DTYPE
 
 __all__ = ["ADMMSpec", "ADMMState", "ADMMSolution", "prepare_admm",
            "init_admm_state", "admm_solve", "problem_vectors",
-           "infeasibility_certificates"]
+           "infeasibility_certificates", "polish_solution", "apply_polish"]
 
 # The JAX package's prepare_admm defaults, which every caller of the
 # flagship keeps.
@@ -156,13 +160,15 @@ def prepare_admm(
     device="cpu",
     tune_iters: int = 150,
     rho2_scale: Optional[float] = None,
+    probe_thetas: Optional[np.ndarray] = None,
 ):
     """Host-side preparation: equilibrate, build K^{-1} in float64, pad,
     cast to ``dtype`` on ``device``.
 
     rho is the first of ``RHO_CANDIDATES`` with the smallest worst-case
     KKT residual of a ``tune_iters``-iteration NumPy trial over the probe
-    thetas (zeros and three ``default_rng(0)`` draws).  ``rho2_scale`` set
+    thetas: ``probe_thetas`` (rows of representative parameters), by
+    default zeros and three ``default_rng(0)`` draws.  ``rho2_scale`` set
     returns the pair ``(spec1, spec2)`` of the two-phase schedule: one
     equilibration, every rho of ``spec2`` scaled.
     """
@@ -174,11 +180,13 @@ def prepare_admm(
         if template.Mq.size else template.q0.reshape(-1, 1)
     Ps, As, D, E, c = _ruiz_equilibrate(P, A, qcols)
 
-    rng = np.random.default_rng(0)
-    probe_thetas = np.vstack([
-        np.zeros((1, template.ntheta)),
-        rng.uniform(-2.0, 2.0, size=(3, template.ntheta)),
-    ])
+    if probe_thetas is None:
+        rng = np.random.default_rng(0)
+        probe_thetas = np.vstack([
+            np.zeros((1, template.ntheta)),
+            rng.uniform(-2.0, 2.0, size=(3, template.ntheta)),
+        ])
+    probe_thetas = np.atleast_2d(probe_thetas)
     rho, best_score = RHO_CANDIDATES[0], np.inf
     for cand in RHO_CANDIDATES:
         rv = np.where(template.is_eq, cand * RHO_EQ_SCALE, cand)
@@ -291,9 +299,9 @@ def admm_solve(spec: ADMMSpec, theta: torch.Tensor,
     leaves ``(B, n_p)`` / ``(B, m_p)``; residuals come back ``(B,)``.
 
     The iteration is ``_admm_body`` of the JAX package with ``A' v``
-    written ``v @ A`` for a batch of row vectors ``v``."""
-    if polish:
-        raise NotImplementedError("admm_solve: polish is not ported yet")
+    written ``v @ A`` for a batch of row vectors ``v``.  ``polish=True``
+    polishes the returned primal and residuals (``apply_polish``); the state
+    stays the raw ADMM iterate."""
     if early_tol is not None:
         raise NotImplementedError("admm_solve: early_tol is not ported yet")
     theta = theta.to(spec.q0.dtype)
@@ -313,8 +321,109 @@ def admm_solve(spec: ADMMSpec, theta: torch.Tensor,
         x, z = x_new, z_new
     r_prim = (x @ spec.As.T - z).abs().amax(dim=1)
     r_dual = (x @ spec.Ps.T + q + y @ spec.As).abs().amax(dim=1)
-    return ADMMSolution(z_primal=spec.D * x, state=ADMMState(x, y, z),
-                        r_prim=r_prim, r_dual=r_dual)
+    sol = ADMMSolution(z_primal=spec.D * x, state=ADMMState(x, y, z),
+                       r_prim=r_prim, r_dual=r_dual)
+    return apply_polish(spec, theta, sol) if polish else sol
+
+
+# The JAX package's polish default, which every caller keeps.
+ACTIVE_TOL = 1e-6       # bound proximity, multiplier sign and equality test
+POLISH_REFINE = 2       # iterative-refinement passes a KKT solve
+POLISH_PASSES = 3       # active-set correction passes
+
+
+def polish_solution(spec: ADMMSpec, q, l, u, x, y, z, r_prim, r_dual):
+    """OSQP-style active-set polish of a batch of scaled ADMM iterates
+    (``rtmpc_tpu/ops/qp.py:polish_solution``), batched over the leading
+    axis: ``q``/``x`` ``(B, n_p)``, ``l``/``u``/``y``/``z`` ``(B, m_p)``,
+    ``r_prim``/``r_dual`` ``(B,)``.
+
+    Per instance: the active set from the iterate (bound proximity within
+    ``max(10 max(r_prim, r_dual), ACTIVE_TOL)``, or a multiplier above
+    ``1e-3 max(|y|, 1)``), the bound picked by proximity and then the
+    multiplier's sign; a direct solve of the regularised KKT system on it,
+    inactive rows replaced by ``-y_i = 0``::
+
+        [ Ps + sx I     (d As)'        ] [x]   [ -q    ]
+        [ d As      -(sy d + (1 - d))  ] [y] = [ d b   ]
+
+    (``sx = sy = 100 eps``) by LU with ``POLISH_REFINE`` refinement
+    passes; then ``POLISH_PASSES`` corrections (rows whose multiplier has
+    the wrong sign leave, rows the polished point violates join) each
+    followed by a new solve.  The polished primal is kept only where its
+    KKT residual ``max(|clip(As x, l, u) - As x|, |Ps x + q + As' y|)``
+    is below ``max(r_prim, r_dual)``.  Returns ``(x, r_prim, r_dual)``."""
+    dt, dev = x.dtype, x.device
+    n_p, m_p = x.shape[1], spec.As.shape[0]
+    As, Ps = spec.As, spec.Ps
+
+    def kkt_res(xv, yv):
+        Axv = xv @ As.T
+        rp = (torch.minimum(torch.maximum(Axv, l), u) - Axv).abs().amax(1)
+        rd = (xv @ Ps.T + q + yv @ As).abs().amax(1)
+        return rp, rd
+
+    # active set from the final iterate: the proximity window scales with
+    # the accuracy the ADMM reached
+    act_tol_z = torch.clamp_min(10.0 * torch.maximum(r_prim, r_dual),
+                                ACTIVE_TOL)[:, None]
+    act_tol_y = 1e-3 * torch.clamp_min(y.abs().amax(1), 1.0)[:, None]
+    near_u = (u - z) < act_tol_z
+    near_l = (z - l) < act_tol_z
+    act = near_u | near_l | (y.abs() > act_tol_y)
+    b_act = torch.where(y < 0, l, u)
+    b_act = torch.where(near_l & ~near_u, l, b_act)
+    b_act = torch.where(near_u & ~near_l, u, b_act)
+    is_eq = (u - l).abs() < ACTIVE_TOL
+    eps = torch.finfo(dt).eps
+    sig_x = sig_y = eps * 100
+    B = x.shape[0]
+    K_xx = (Ps + sig_x * torch.eye(n_p, dtype=dt, device=dev)).expand(
+        B, n_p, n_p)
+
+    def kkt_solve(act_k, b_k):
+        d = act_k.to(dt)
+        Ad = As * d[:, :, None]                                  # (B, m, n)
+        K = torch.cat([
+            torch.cat([K_xx, Ad.transpose(1, 2)], dim=2),
+            torch.cat([Ad, torch.diag_embed(-(sig_y * d + (1.0 - d)))],
+                      dim=2)], dim=1)
+        rhs = torch.cat([-q, d * b_k], dim=1)[:, :, None]
+        LU, piv = torch.linalg.lu_factor(K)
+        s = torch.linalg.lu_solve(LU, piv, rhs)
+        for _ in range(POLISH_REFINE):
+            s = s + torch.linalg.lu_solve(LU, piv, rhs - K @ s)
+        s = s[:, :, 0]
+        return s[:, :n_p], s[:, n_p:] * d
+
+    xp, yp = kkt_solve(act, b_act)
+    for _ in range(POLISH_PASSES):
+        wrong_sign = torch.where(b_act == u, yp < -ACTIVE_TOL,
+                                 yp > ACTIVE_TOL) & ~is_eq
+        Axp = xp @ As.T
+        viol_u = Axp > u + ACTIVE_TOL
+        viol_l = Axp < l - ACTIVE_TOL
+        act = (act & ~wrong_sign) | viol_u | viol_l | is_eq
+        b_act = torch.where(viol_l, l, b_act)
+        b_act = torch.where(viol_u, u, b_act)
+        xp, yp = kkt_solve(act, b_act)
+    rp_p, rd_p = kkt_res(xp, yp)
+    better = torch.maximum(rp_p, rd_p) < torch.maximum(r_prim, r_dual)
+    return (torch.where(better[:, None], xp, x),
+            torch.where(better, rp_p, r_prim),
+            torch.where(better, rd_p, r_dual))
+
+
+def apply_polish(spec: ADMMSpec, theta: torch.Tensor,
+                 sol: ADMMSolution) -> ADMMSolution:
+    """``sol`` of a batch with its primal and residuals polished
+    (``polish_solution`` at the instances' ``theta (B, ntheta)``); the
+    state stays the raw ADMM iterate, whose duals would poison the next
+    solve's warm start."""
+    q, l, u = problem_vectors(spec, theta.to(spec.q0.dtype))
+    x, rp, rd = polish_solution(spec, q, l, u, *sol.state, sol.r_prim,
+                                sol.r_dual)
+    return sol._replace(z_primal=spec.D * x, r_prim=rp, r_dual=rd)
 
 
 # The JAX package's certificate defaults, which every caller keeps.

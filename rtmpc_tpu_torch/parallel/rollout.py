@@ -8,8 +8,10 @@ rollouts at once:
   1. the QP solve from the current estimate: the two-phase ADMM solve,
      warm-started from the previous step's iterate (solver "admm": batched
      PyTorch, ``ops/qp.py``; solver "cuda": one launch of the fused kernel
-     per phase, ``ops/qp_cuda.py``), or the structured interior point,
-     cold every step (solver "ip_riccati", ``ops/ip_riccati.py``);
+     per phase, ``ops/qp_cuda.py``), its primal polished after the last
+     phase where ``cfg.polish`` is set, or an interior point, cold every
+     step (solver "ip": the dense one, ``ops/ip.py``; solver "ip_riccati":
+     the structured one, ``ops/ip_riccati.py``);
   2. the packet ``U_t = [u_nom(0..N-1), ubar + K xbar]``;
   3. the estimator records the optimal initial nominal state;
   4. the actuator processes the packet gated by theta;
@@ -35,8 +37,15 @@ rollout also freezes once its QP is certified infeasible for
 ``INFEAS_PERSIST`` consecutive steps: under the ADMM solvers by the
 OSQP-style certificates (``ops/qp.py:infeasibility_certificates``, taken
 with the spec whose rho produced the final state), under "ip_riccati" by a
-final primal residual above 1e-2; an extended controller is certified on
-the QP it used that step.
+final primal residual above 1e-2, under "ip" by none (the dense interior
+point diverges to non-finite values on an infeasible QP, as in the JAX
+engine); an extended controller is certified on the QP it used that step.
+
+``make_batched_rollout``'s rollout resumes from a carry it is given, so a
+session advances window by window (``parallel/session.py``).
+``make_direct_rollout`` is the non-networked loop of the reference's
+example controllers: the QP from the measured state, its first input
+applied, optionally with the tube's ancillary law.
 """
 
 from __future__ import annotations
@@ -46,8 +55,9 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..models.specs import ControllerArrays, ControllerConfig
+from ..ops.ip import ip_solve
 from ..ops.ip_riccati import RiccatiIPSpec, ip_riccati_solve
-from ..ops.qp import (ADMMSolution, ADMMState, admm_solve,
+from ..ops.qp import (ADMMSolution, ADMMState, admm_solve, apply_polish,
                       infeasibility_certificates, init_admm_state)
 from ..ops.qp_cuda import admm_solve_cuda
 from ..protocol.actuator import ActuatorState, actuator_step, init_actuator
@@ -55,20 +65,23 @@ from ..protocol.estimator import (EstimatorState, estimator_update,
                                   init_estimator, store_sequence)
 from ..tree import tree_map, tree_to
 
-__all__ = ["RolloutCarry", "StepOutputs", "init_carry",
-           "make_batched_rollout", "tracking_error_rms"]
+__all__ = ["RolloutCarry", "StepOutputs", "DirectOutputs", "init_carry",
+           "make_batched_rollout", "make_direct_rollout",
+           "tracking_error_rms"]
 
 # consecutive certified steps that stop an arm (the JAX package's
 # infeas_persist default, which every caller keeps): one borderline
 # certificate does not flap the arm
 INFEAS_PERSIST = 2
+# the solvers that carry a warm-started ADMM iterate from step to step
+ADMM_SOLVERS = ("admm", "cuda")
 
 
 class RolloutCarry(NamedTuple):
     x: torch.Tensor           # (B, nx) plant state
     act: ActuatorState
     est: EstimatorState
-    admm: Optional[ADMMState]  # ADMM warm-start iterate (None under IP)
+    admm: Optional[ADMMState]  # ADMM warm-start iterate (None under the IPs)
     admm_pr: Optional[ADMMState]  # same, packet-received QP (extended ADMM)
     prev_gamma: torch.Tensor  # (B,) int32 gamma of the previous step
     feasible: torch.Tensor    # (B,) bool
@@ -94,7 +107,7 @@ def init_carry(arrays: ControllerArrays, cfg: ControllerConfig,
     """Initial carry for the batch of initial states ``x0 (B, nx)``."""
     x0 = x0.to(dtype=arrays.A.dtype, device=arrays.A.device)
     B = x0.shape[0]
-    admm = cfg.solver != "ip_riccati"
+    admm = cfg.solver in ADMM_SOLVERS
     return RolloutCarry(
         x=x0,
         act=init_actuator(cfg.N, cfg.nu, x0),
@@ -112,13 +125,18 @@ def _extract_packet(arrays: ControllerArrays, cfg: ControllerConfig,
                     z: torch.Tensor):
     """Encapsulation (``TubeTrackingMPC.encapsulate`` :211-227):
     ``U_t = [u_nom(.), ubar + K xbar]`` (B, N+1, nu), plus the optimal
-    initial nominal state x_nom(0) and xbar, each (B, nx)."""
+    initial nominal state x_nom(0) and xbar, each (B, nx); a regulator
+    (no tracking block) has ``xbar = 0`` and a zero terminal input."""
     B = z.shape[0]
     u_traj = z[:, cfg.u_off:cfg.u_off + cfg.N * cfg.nu].reshape(
         B, cfg.N, cfg.nu)
-    xbar = z[:, cfg.xbar_off:cfg.xbar_off + cfg.nx]
-    ubar = z[:, cfg.ubar_off:cfg.ubar_off + cfg.nu]
-    u_ss = ubar + xbar @ arrays.K_ss.T
+    if cfg.tracking:
+        xbar = z[:, cfg.xbar_off:cfg.xbar_off + cfg.nx]
+        ubar = z[:, cfg.ubar_off:cfg.ubar_off + cfg.nu]
+        u_ss = ubar + xbar @ arrays.K_ss.T
+    else:
+        xbar = z.new_zeros(B, cfg.nx)
+        u_ss = z.new_zeros(B, cfg.nu)
     U_t = torch.cat([u_traj, u_ss[:, None]], dim=1)
     return U_t, z[:, :cfg.nx], xbar
 
@@ -134,10 +152,17 @@ def _solve(arrays: ControllerArrays, cfg: ControllerConfig,
     """One QP solve for the batch, of the packet-received QP if ``pr``.
 
     Solver "ip_riccati": one cold interior-point solve (the warm state
-    passes through) on ``ric`` if given, else on the arrays' spec.
-    Otherwise the two-phase schedule as a state hand-off: phase 1 at
-    ``admm``, phase 2 at ``admm2`` (rho scaled) from phase 1's iterate;
-    residuals are phase 2's."""
+    passes through) on ``ric`` if given, else on the arrays' spec; solver
+    "ip" likewise on the dense interior point's spec.  Otherwise the
+    two-phase schedule as a state hand-off: phase 1 at ``admm``, phase 2
+    at ``admm2`` (rho scaled) from phase 1's iterate; residuals are phase
+    2's, and with ``cfg.polish`` the primal and residuals are polished on
+    the last phase's spec (``rtmpc_tpu/parallel/rollout.py:407-416``)."""
+    if cfg.solver == "ip":
+        sol = ip_solve(arrays.ip_pr if pr else arrays.ip, theta_qp,
+                       iters=cfg.ip_iters)
+        return ADMMSolution(z_primal=sol.z_primal, state=warm,
+                            r_prim=sol.r_prim, r_dual=sol.r_dual)
     if cfg.solver == "ip_riccati":
         if ric is None:
             ric = arrays.ric_pr if pr else arrays.ric
@@ -150,7 +175,8 @@ def _solve(arrays: ControllerArrays, cfg: ControllerConfig,
     sol = solve(spec, theta_qp, warm, iters=cfg.iters)
     if cfg.iters2 > 0:
         sol = solve(spec2, theta_qp, sol.state, iters=cfg.iters2)
-    return sol
+        spec = spec2
+    return apply_polish(spec, theta_qp, sol) if cfg.polish else sol
 
 
 def _select(keep, a, b):
@@ -163,6 +189,10 @@ def _certified_infeasible(arrays: ControllerArrays, cfg: ControllerConfig,
                           pr: bool = False) -> torch.Tensor:
     """The per-step infeasibility verdict of ``infeas_mode="certificate"``
     (``rtmpc_tpu/parallel/rollout.py:324-357``) on one QP's solution."""
+    if cfg.solver == "ip":
+        # the dense interior point diverges to non-finite values instead,
+        # which the step's finite check catches
+        return torch.zeros_like(sol.r_prim, dtype=torch.bool)
     if cfg.solver == "ip_riccati":
         # the best-iterate return keeps z finite on infeasible instances:
         # feasible solves land at <= 1e-6, infeasible ones stall >= 1e-2
@@ -281,12 +311,15 @@ def make_batched_rollout(arrays: ControllerArrays, cfg: ControllerConfig,
                          infeas_mode: Optional[str] = None,
                          plant_step: Optional[Callable] = None,
                          one_solve: Optional[bool] = None) -> Callable:
-    """Build ``rollout(x0, refs, w, theta, gamma) -> (carry, StepOutputs)``.
+    """Build ``rollout(x0, refs, w, theta, gamma, carry0=None) -> (carry,
+    StepOutputs)``.
 
     Inputs are batch-major: ``x0 (B, nx)``, ``refs``/``w`` ``(B, T, nx)``,
     ``theta``/``gamma`` ``(B, T)`` int32, on the arrays' device.  Outputs
     are batch-major too (``(B, T, .)``), as the JAX batched engine returns
-    them.  ``cfg.solver`` picks the QP solve of step 1;
+    them.  ``carry0`` resumes from a carry (``x0`` is then ignored), as
+    JAX's ``make_rollout_fn`` does: T steps from a carry equal the same
+    steps inside one longer rollout.  ``cfg.solver`` picks the QP solve of step 1;
     ``actuator_mode`` is "consistent" or "smart"; ``infeas_mode`` None or
     "certificate" (see the module note); ``plant_step(x (B, nx), u (B, nu),
     w (B, nx)) -> x_next`` defaults to the linear plant; ``one_solve`` (an
@@ -306,8 +339,8 @@ def make_batched_rollout(arrays: ControllerArrays, cfg: ControllerConfig,
                          "solver 'ip_riccati' whose two QPs differ in the "
                          "initial tube's bounds alone")
 
-    def rollout(x0, refs, w, theta, gamma):
-        carry = init_carry(arrays, cfg, x0)
+    def rollout(x0, refs, w, theta, gamma, carry0=None):
+        carry = init_carry(arrays, cfg, x0) if carry0 is None else carry0
         w = w.to(carry.x.dtype)
         outs = []
         for t in range(T):
@@ -317,6 +350,58 @@ def make_batched_rollout(arrays: ControllerArrays, cfg: ControllerConfig,
             outs.append(out)
         stacked = tree_map(lambda *a: torch.stack(a, dim=1), *outs)
         return carry, stacked
+
+    return rollout
+
+
+class DirectOutputs(NamedTuple):
+    x: torch.Tensor           # (B, T, nx) plant state AFTER each step
+    u: torch.Tensor           # (B, T, nu) applied input
+    x_nom: torch.Tensor       # (B, T, nx) optimal initial nominal state
+    xbar: torch.Tensor        # (B, T, nx) artificial steady state (0 if none)
+    r_prim: torch.Tensor      # (B, T) QP primal residual (scaled)
+    r_dual: torch.Tensor      # (B, T) QP dual residual (scaled)
+
+
+def make_direct_rollout(arrays: ControllerArrays, cfg: ControllerConfig,
+                        T: int, ancillary: bool = False,
+                        plant_step: Optional[Callable] = None) -> Callable:
+    """Build ``rollout(x0, refs, w) -> ((x_T, warm), DirectOutputs)``, the
+    non-networked closed loop (``rtmpc_tpu/parallel/rollout.py:
+    make_direct_rollout``): each step solves the QP from the MEASURED state
+    and applies its first input, ``u = u*_0`` (the loops of the
+    reference's regulator and tracking examples), or with ``ancillary``
+    Mayne's tube law ``u = u*_0 - K (x - x*_nom0)`` (its tube examples).
+
+    Batch-major: ``x0 (B, nx)``, ``refs``/``w`` ``(B, T, nx)``.  The ADMM
+    solvers warm-start each solve from the previous one (``warm``, None
+    under the interior points)."""
+    if plant_step is None:
+        def plant_step(x, u, w):
+            return x @ arrays.A.T + u @ arrays.B.T + w
+
+    def rollout(x0, refs, w):
+        x = x0.to(dtype=arrays.A.dtype, device=arrays.A.device)
+        w = w.to(x.dtype)
+        warm = (init_admm_state(arrays.admm, x.shape[0])
+                if cfg.solver in ADMM_SOLVERS else None)
+        outs = []
+        for t in range(T):
+            theta_qp = torch.cat([x, refs[:, t].to(x.dtype)], dim=-1)
+            sol = _solve(arrays, cfg, theta_qp, warm)
+            z = sol.z_primal
+            u = z[:, cfg.u_off:cfg.u_off + cfg.nu]
+            x_nom0 = z[:, :cfg.nx]
+            if ancillary:
+                u = u - (x - x_nom0) @ arrays.K_plant.T
+            xbar = (z[:, cfg.xbar_off:cfg.xbar_off + cfg.nx] if cfg.tracking
+                    else torch.zeros_like(x))
+            x = plant_step(x, u, w[:, t])
+            warm = sol.state
+            outs.append(DirectOutputs(x, u, x_nom0, xbar, sol.r_prim,
+                                      sol.r_dual))
+        stacked = tree_map(lambda *a: torch.stack(a, dim=1), *outs)
+        return (x, warm), stacked
 
     return rollout
 

@@ -307,3 +307,120 @@ def test_step_profile_reads_the_extended_step(extended):
     res = profile_steps(8, 1, "extended", "ip_riccati", "linear")
     assert res["ip_iterations_per_step"] > 3
     assert "k1_ms_per_launch" not in res
+
+
+# ---------------------------------------------------------------------------
+# The single-instance controllers: the served session on CUDA graphs (K1 at
+# B=1 inside the graph), the dense interior point and the polish
+# ---------------------------------------------------------------------------
+
+def _session_inputs(K, seed):
+    from rtmpc_tpu_torch.apps.serve_controller import session_inputs
+    refs, theta, gamma, w = session_inputs(seed, K, 0.4)
+    return (torch.tensor(refs, dtype=torch.float32),
+            torch.tensor(w, dtype=torch.float32),
+            torch.tensor(theta, dtype=torch.int32),
+            torch.tensor(gamma, dtype=torch.int32))
+
+
+def test_session_graph_equals_eager(flagship_cuda):
+    """One window of 40 ticks replayed from the captured graph equals the
+    same ticks run eagerly from the same carry (1e-6; the same kernels on
+    the same inputs read 0); the next window resumes from the graph's
+    carry as an eager rollout resumes from its own."""
+    from rtmpc_tpu_torch.parallel.session import Session
+    arrays, cfg = flagship_cuda
+    K = 40
+    session = Session(arrays, cfg, K, [0.0, 0.0])
+    assert session.graph is not None
+    rollout = make_batched_rollout(arrays, cfg, K)
+    carry = session.snapshot()
+    for seed in (0, 1):
+        inp = _session_inputs(K, seed)
+        got = session.advance(*inp)
+        carry, want = rollout(None, *(a[None].cuda() for a in inp),
+                              carry0=carry)
+        torch.cuda.synchronize()
+        for name, a, b in zip(want._fields, got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6, msg=name)
+        torch.testing.assert_close(session.carry.x, carry.x, rtol=0,
+                                   atol=1e-6)
+
+
+def test_session_launches_are_captured_times_replays(flagship_cuda):
+    """K1 launches once a phase at capture (2 a tick); replays launch
+    nothing on the host, and the session counts captured x replays."""
+    from rtmpc_tpu_torch.parallel.session import Session
+    arrays, cfg = flagship_cuda
+    K = 10
+    before = admm_solve_cuda.launches
+    session = Session(arrays, cfg, K, [0.0, 0.0])
+    assert session.captured_launches == 2 * K
+    assert admm_solve_cuda.launches == before + 4 * K   # warm-up + capture
+    inp = _session_inputs(K, 2)
+    for _ in range(3):
+        session.advance(*inp)
+    torch.cuda.synchronize()
+    assert admm_solve_cuda.launches == before + 4 * K
+    assert session.replays == 3 and session.launches == 6 * K
+
+
+def test_per_dispatch_timers_on_the_card(flagship_cuda):
+    from rtmpc_tpu_torch.parallel.latency import (device_step_time,
+                                                  dispatch_floor_s,
+                                                  measure_step_latencies)
+    arrays, cfg = flagship_cuda
+    refs, w, theta, gamma = _session_inputs(12, 3)
+    times = measure_step_latencies(arrays, cfg, refs, w, theta, gamma)
+    assert times.shape == (12,) and bool((times > 0).all())
+    dispatch = float(np.median(times))
+    per_tick = device_step_time(arrays, cfg, refs, w, theta, gamma)
+    assert 0 < per_tick < dispatch
+    assert 0 < dispatch_floor_s("cuda") < dispatch
+
+
+def test_dense_ip_and_polish_card_match_cpu():
+    """The dense interior point (30 iterations) and the ADMM polish on the
+    card against the CPU, float64, flagship QP, 16 thetas: z within 1e-9,
+    r_prim within 1e-12 (the same algorithm; sums in other orders)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rtmpc_tpu_torch.ops.ip import ip_solve
+    from rtmpc_tpu_torch.ops.qp import admm_solve
+    setup = flagship_setup()
+    th = np.random.default_rng(4).uniform(-2, 2, (16, 4))
+    for solver in ("ip", "admm"):
+        sols = {}
+        for dev in ("cpu", "cuda"):
+            arrays, _ = setup.to_device(torch.float64, dev, solver=solver,
+                                        ip_iters=30)
+            t = torch.tensor(th, device=dev)
+            sols[dev] = (ip_solve(arrays.ip, t, 30) if solver == "ip" else
+                         admm_solve(arrays.admm, t, iters=120, polish=True))
+        torch.testing.assert_close(sols["cuda"].z_primal.cpu(),
+                                   sols["cpu"].z_primal, rtol=0, atol=1e-9)
+        torch.testing.assert_close(sols["cuda"].r_prim.cpu(),
+                                   sols["cpu"].r_prim, rtol=0, atol=1e-12)
+
+
+def test_session_captures_the_dense_ip():
+    """The dense interior point's per-iteration LU factorizations capture
+    in a window graph too (float64 on the card, 3 ticks); the graph's
+    window equals the same ticks run eagerly (1e-12)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rtmpc_tpu_torch.parallel.session import Session
+    arrays, cfg = flagship_setup().to_device(torch.float64, "cuda",
+                                             solver="ip", ip_iters=30)
+    session = Session(arrays, cfg, 3, [0.5, -0.2])
+    assert session.graph is not None and session.captured_launches == 0
+    inp = _session_inputs(3, 4)
+    carry = session.snapshot()
+    got = session.advance(*(a.double() if a.is_floating_point() else a
+                            for a in inp))
+    _, want = make_batched_rollout(arrays, cfg, 3)(
+        None, *((a.double() if a.is_floating_point() else a)[None].cuda()
+                for a in inp), carry0=carry)
+    torch.cuda.synchronize()
+    for name, a, b in zip(want._fields, got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-12, msg=name)

@@ -91,6 +91,25 @@ _ROLLOUT = _BLOCK_JAX + textwrap.dedent("""
     assert torch.equal(x4, cartpole_zoh_step(
         CartpoleParams(), torch.zeros(2, 4, dtype=torch.float64),
         torch.ones(2, dtype=torch.float64), 0.02, 10))
+    # the single-instance controllers: the session, the latency timers, the
+    # serve app, the six examples, the dense interior point and the polish
+    from rtmpc_tpu_torch.apps import serve_controller  # noqa: F401
+    from rtmpc_tpu_torch.apps import (example_regulator,  # noqa: F401
+                                      example_tracking, example_tracking_lossy,
+                                      example_tube_regulator,
+                                      example_tube_tracking,
+                                      example_tube_tracking_lossy)
+    from rtmpc_tpu_torch.ops.ip import ip_solve  # noqa: F401
+    from rtmpc_tpu_torch.parallel.latency import latency_report  # noqa: F401
+    from rtmpc_tpu_torch.parallel.session import Session
+    assert example_regulator.main(["--device", "cpu"]) == 0
+    assert example_tube_tracking_lossy.main(["--device", "cpu", "--quick",
+                                             "--solver", "admm"]) == 0
+    arrays, cfg = setup.to_device(torch.float64, "cpu", iters=20, iters2=20,
+                                  solver="admm", polish=True)
+    ses = Session(arrays, cfg, 3, [0.0, 0.0])
+    o = ses.advance(refs[0], w[0].double(), theta[0], gamma[0])
+    assert o.x.shape == (1, 3, 2) and bool(ses.carry.feasible.all())
     for blocked in ("jax", "rtmpc_tpu", "rtmpc_tpu.utils"):
         try:
             __import__(blocked)

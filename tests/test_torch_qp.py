@@ -193,8 +193,11 @@ def test_wrapper_rejects_other_devices(specs64):
                         torch.zeros(4, 4, device="meta"), None, 10)
 
 
-@pytest.mark.parametrize("option", [{"polish": True}, {"early_tol": 1e-4}])
+@pytest.mark.parametrize("option", [{"early_tol": 1e-4, "polish": True},
+                                    {"early_tol": 1e-4}])
 def test_unported_options_raise(specs64, option):
+    """The residual-based early exit is not ported and raises, with or
+    without the (ported) polish."""
     pa = specs64[1]
     with pytest.raises(NotImplementedError):
         admm_solve(pa.admm, torch.zeros(2, 4, dtype=torch.float64), None,
@@ -287,6 +290,7 @@ def test_compare_with_plain_holds_its_bars():
 
 @pytest.mark.parametrize("n_p,m_p,B,iters,want_ms,ratio", [
     (40, 112, 16384, 60, 0.31504, 2.1879),
+    (40, 112, 1, 60, 1.92287e-5, 2.1879),
     (112, 792, 200, 200, 0.22794, 4.3022),
     (112, 840, 200, 200, 0.24084, 4.5156),
     (112, 1648, 200, 200, 0.45804, 8.1154)])
@@ -304,3 +308,22 @@ def test_kernel_bound_counts_the_factored_form(n_p, m_p, B, iters, want_ms,
     assert ms == pytest.approx(flops / PEAK_FP32_FLOPS * 1e3, rel=1e-12)
     assert ms == pytest.approx(want_ms, rel=1e-4)
     assert composite_over_factored(n_p, m_p) == pytest.approx(ratio, rel=1e-4)
+
+
+def test_kernel_bound_bytes_count_the_factored_form():
+    """Where bytes bound a phase (one iteration at B=1 on the flagship's
+    40 + 112 columns), ``roofline_ms`` counts the factored form's inputs
+    and outputs, not the composites the kernel reads: Kinv, As, Ps, the
+    maps of q, l, u in theta, rho, 1/rho, sigma, and theta, the state in
+    and out and the residuals of the one row."""
+    from rtmpc_tpu_torch.ops.kernel_bench import (PEAK_BYTES_PER_S,
+                                                  roofline_ms)
+    n_p, m_p, nt = 40, 112, 4
+    floats = (n_p * n_p + m_p * n_p + n_p * n_p
+              + (n_p + 2 * m_p) * (nt + 1) + 2 * m_p + 1
+              + nt + 2 * (n_p + 2 * m_p) + 2)
+    assert floats == 9759
+    ms, by = roofline_ms(1, n_p, m_p, nt, 1)
+    assert by == "bytes"
+    assert ms == pytest.approx(4.0 * floats / PEAK_BYTES_PER_S * 1e3,
+                               rel=1e-12)

@@ -86,8 +86,10 @@ from rtmpc_tpu_torch.parallel.mc import (SweepDraws, load_draws,  # noqa: E402
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
-    """One intra-op thread: the batches here are small, and the test
-    workers that run in parallel then do not compete for the cores."""
+    """One intra-op thread: the batches here are small, the test workers
+    that run in parallel then do not compete for the cores, and this CPU
+    build of torch can deadlock in a batched LU factorization (the
+    polish's, batch > 1) run on several intra-op threads."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -182,6 +184,48 @@ def test_mc_sweep_matches_jax(cartpole_setups, solver, arm):
     np.testing.assert_array_equal(got.infeasible_counts,
                                   want.infeasible_counts)
     np.testing.assert_array_equal(got.feasible, want.feasible)
+
+
+def test_admm_float64_polishes_and_rows_match_jax(cartpole_setups):
+    """``--solver admm --dtype float64`` polishes in both packages (JAX
+    ``apps/common.py:128``) and gives the JAX package's rows: both arms as
+    the apps run them, each package's own ``solver_kwargs`` at the Results
+    apps' 400 iterations, 2 probabilities x 2 runs x T=8 on the committed
+    draws' bits; the per-p mean RMS (the apps' rows) within 1e-8,
+    infeasible counts and feasibility equal.  On these 32 solves an arm
+    the polish is computed and rejected every time (its KKT residual does
+    not beat the ADMM's 1e-2-class one on the cartpole), so the rows equal
+    the unpolished ones; ``test_torch_polish_ip.py`` holds the polish
+    itself to the JAX package where it is accepted."""
+    import argparse
+    from rtmpc_tpu.apps.common import solver_kwargs as jax_solver_kwargs
+    from rtmpc_tpu_torch.apps.common import RESULTS_ADMM_ITERS, solver_kwargs
+    sc, setups = cartpole_setups
+    flags = argparse.Namespace(solver="admm", dtype="float64")
+    jkw = jax_solver_kwargs(flags, admm_iters=400)
+    pkw = solver_kwargs(flags, admm_iters=RESULTS_ADMM_ITERS)
+    assert jkw["polish"] is pkw["polish"] is True
+    T = SMALL["T"]
+    refs = np.zeros((T, 4))
+    refs[:, 0] = sc.ref_value
+    for arm in ("tube", "track"):
+        jax_setup, port_setup = setups[arm]
+        common = dict(T=T, n_mc=SMALL["n_mc"], loss_probs=SMALL["probs"],
+                      refs=refs, x0=sc.x0, w_lo=sc.w_lo, w_hi=sc.w_hi,
+                      **ARMS[arm])
+        ja, jc = jax_setup.to_device(dtype=jnp.float64, **jkw)
+        want = jax_run_mc_sweep(ja, jc,
+                                key=jax.random.split(jax.random.PRNGKey(0))[0],
+                                **common)
+        pa, pc = port_setup.to_device(torch.float64, "cpu", **pkw)
+        assert pc.polish
+        got = run_mc_sweep(pa, pc, draws=_small_draws(), **common)
+        np.testing.assert_allclose(np.nanmean(got.tracking_error, axis=1),
+                                   np.nanmean(want.tracking_error, axis=1),
+                                   rtol=0, atol=1e-8, err_msg=arm)
+        np.testing.assert_array_equal(got.infeasible_counts,
+                                      want.infeasible_counts)
+        np.testing.assert_array_equal(got.feasible, want.feasible)
 
 
 def test_checkpoint_resume_equals_single_shot(tmp_path):

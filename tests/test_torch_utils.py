@@ -7,17 +7,53 @@ numpy-seeded inputs in both packages and must return the same float64
 bits: same statements, same LAPACK/Qhull/LP calls.  Both packages read
 ``RTMPC_NO_NATIVE`` alike, so both solve their LPs with the native library
 or both with scipy; the cases are small enough to be quick either way.
+
+The JAX package builds its native library in place with ``make`` and
+remembers a failed load for the rest of the process, so a process that
+loads it while another one is still writing it sees no library, while the
+port (which builds atomically into its own file) sees one.  The module
+fixture ``same_lp_solver`` waits for such a build and loads the JAX
+package's library again; if the two packages still disagree, it pins both
+to scipy for this module.  A build race then changes which LP solver the
+cases run on, never whether the two packages agree.
 """
+
+import time
 
 import numpy as np
 import pytest
 
 import rtmpc_tpu.sets as jsets
 import rtmpc_tpu.utils as jutils
+import rtmpc_tpu.utils._native as jax_native
 import rtmpc_tpu_torch.sets as psets
 import rtmpc_tpu_torch.utils as putils
+import rtmpc_tpu_torch.utils._native as port_native
 from rtmpc_tpu.utils._native import native_available as jax_native_available
 from rtmpc_tpu_torch.utils._native import native_available
+
+# how long to wait for another process's build of the JAX package's
+# library (its make is given 120 s) before pinning both packages to scipy
+RACE_WAIT_S = 150.0
+
+
+@pytest.fixture(scope="module", autouse=True)
+def same_lp_solver():
+    """Both packages on the same LP solver for this module's cases."""
+    with pytest.MonkeyPatch.context() as mp:
+        deadline = time.monotonic() + RACE_WAIT_S
+        while native_available() != jax_native_available():
+            if time.monotonic() > deadline:
+                for mod in (jax_native, port_native):
+                    mp.setattr(mod, "_tried", True)
+                    mp.setattr(mod, "_lib", None)
+                break
+            # another process may still be writing the JAX package's .so:
+            # forget the failed load and try again once it has settled
+            time.sleep(1.0)
+            mp.setattr(jax_native, "_tried", False)
+            mp.setattr(jax_native, "_lib", None)
+        yield
 
 DI_A = np.array([[1.0, 1.0], [0.0, 1.0]])
 DI_B = np.array([[0.5], [1.0]])
