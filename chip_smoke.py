@@ -121,6 +121,41 @@ flagship's setup):
      ``--solver cuda``: each one's checks pass; their seconds and kernel
      launches are printed.
 
+Then the rest of the paper's figures and apps, and the condensed QP (run
+after phase 16; the Results apps run with ``--no-figures``, since figures
+need matplotlib):
+
+ 20. Fig. 3d under the structured interior point in float64: a one-tick
+     CUDA graph of the RT-MPC controller holds the whole interior point
+     (its fixed iteration budget, no read of the device); its capture and
+     instantiation times; its first 20 ticks equal the same ticks run
+     eagerly to 1e-9; then ``results_linear``'s solve-time statistics at
+     its full T=250, one replay and one synchronize a tick, p50, p99 and
+     max printed beside the card's name.  The same statistics under
+     ``--solver cuda`` come with phases 11 and 14 (each arm's one-tick
+     graph launches K1 twice through the wrapper: its warm-up tick and
+     its captured tick), the extended arm's under ``ip_riccati`` with
+     phase 15;
+ 21. ``estimate_w`` at its defaults (100 LQR rollouts of 150 steps of the
+     nonlinear plant, float64): its two checks, and its box equal to the
+     port's CPU run on the same initial states to 1e-10;
+ 22. ``create_animations.run`` under ``--solver cuda`` at full T (K1 at
+     B=1 on the cartpole's QPs, 2 launches a step on each arm), its checks
+     (both arms finite, the tube arm's |phi| < 0.3; the tracking arm's
+     bound printed, not gated, as ``phase_animations`` says), no
+     rendering; K1's time at B=1 there beside its bound and
+     ``torch.mm``;
+ 23. the condensed QPs (``condense_template``): K1 against its plain
+     version on the condensed flagship (16 + 96, smem path) at B=16384 and
+     B=1 and on the condensed cartpole QPs (32 + 712 and 32 + 760, cluster
+     path, 16 rows a cluster) at B=200 and B=1, each timed beside its
+     bound and ``torch.mm``; the condensed flagship closed loop at
+     B=16384, T=120 (240 launches, feasible, finite, the tube invariant at
+     every step; on phase 7's inputs within 1e-3 of the plain float32
+     loop and no further from float64 on the CPU than 1e-3 or 3x plain
+     float32's own distance); a condensed RT-MPC cartpole loop (B=200,
+     T=60, 2 launches a step, finite).
+
 Prints the kernels' JSON record on the line before the last and, as the
 last line, ``{"ok": true, "device": {...}}``.
 """
@@ -606,8 +641,8 @@ def phase_sweep(solver, out_json, setups, quick=False):
     depth if ``quick``."""
     from rtmpc_tpu_torch.apps import results_linear
     args = results_linear.parse_args(
-        ["--device", "cuda", "--solver", solver, "--save-json", out_json]
-        + (["--quick"] if quick else []))
+        ["--device", "cuda", "--solver", solver, "--save-json", out_json,
+         "--no-figures"] + (["--quick"] if quick else []))
     t0 = time.perf_counter()
     out = results_linear.run(args, (setups["tube"], setups["track"]))
     print("sweep (%s%s) done in %.1f s" % (solver, ", --quick" if quick
@@ -647,6 +682,13 @@ def _require_sweep_finite(out, what):
             _require(bool(np.isfinite(a).all()), (what, name))
 
 
+# Kernel launches through the wrapper of each app's Fig. 3d timing under
+# --solver cuda: an arm's one-tick session runs its tick once eagerly
+# (warm-up) and once under capture; the replays launch nothing through it.
+# RT-MPC solves 1 QP a tick, Ext-RT-MPC 2, in 2 phases each.
+FIG3D_LAUNCHES = {"results_linear": 2 * 2,
+                  "results_linear_extended": 2 * 2 + 2 * 4,
+                  "results_nonlinear": 0}
 # kernel launches a step of each arm under --solver cuda: 2 phases a QP,
 # and one more for each QP that is certified
 LAUNCHES_A_STEP = {
@@ -666,8 +708,9 @@ def phase_new_apps_cuda(setups, out_dir):
                        (results_nonlinear, ["--extended"])):
         app = mod.__name__.rsplit(".", 1)[1]
         args = mod.parse_args(
-            ["--device", "cuda", "--solver", "cuda", "--save-json",
-             os.path.join(out_dir, app + "_cuda.json")] + extra)
+            ["--device", "cuda", "--solver", "cuda", "--no-figures",
+             "--save-json", os.path.join(out_dir, app + "_cuda.json")]
+            + extra)
         _reset_launches()          # the main path's run: counts from 0
         t0 = time.perf_counter()
         out = mod.run(args, setups)
@@ -682,7 +725,10 @@ def phase_new_apps_cuda(setups, out_dir):
                  "pass" if out["ok"] else "FAIL (printed, not gated)"))
         want = {arm: n * T for arm, n in LAUNCHES_A_STEP[app].items()}
         _require(got == want, (app, got, want))
-        _require(l2 == sum(want.values()), (app, l2))
+        _require(l2 == sum(want.values()) + FIG3D_LAUNCHES[app],
+                 (app, l2))
+        if FIG3D_LAUNCHES[app]:
+            _print_fig3d(app + " --solver cuda", out["payload"])
         _require_sweep_finite(out, app)
         res = out["results"]
         for arm in ("RT-MPC", "Ext-RT-MPC"):
@@ -711,13 +757,15 @@ def phase_new_f64(app, arm, setups, out_dir):
     sweep."""
     mod = importlib.import_module("rtmpc_tpu_torch.apps." + app)
     args = mod.parse_args(
-        ["--device", "cuda", "--save-json",
+        ["--device", "cuda", "--no-figures", "--save-json",
          os.path.join(out_dir, "%s_%s_ip_riccati.json" % (app, arm))])
     t0 = time.perf_counter()
     out = mod.run(args, setups, arms=(arm,))
     print("%s, arm %s, float64 ip_riccati done in %.1f s (held to %s)"
           % (app, arm, time.perf_counter() - t0, os.path.basename(mod.TRUTH)))
     _require(out["ok"] and out["compared"], (app, "checks"))
+    if app == "results_linear_extended":
+        _print_fig3d(app + " " + arm + " ip_riccati", out["payload"])
     res = out["results"][arm]
     _require(bool(res.feasible.all()), (app, arm, "feasible"))
     _require_sweep_finite(out, app)
@@ -791,6 +839,332 @@ def phase_plant(sc, dev):
     print("cartpole_zoh_step, card vs CPU, float64, B=4096: max |dx| %.3e"
           % worst)
     _require(worst <= 1e-12, worst)
+
+
+# Phase 20, Fig. 3d through the captured interior point.
+T_FIG3D = 250             # results_linear's full T
+GRAPH_TICKS = 20          # captured ticks held to the eager ticks
+IP_GRAPH_TOL = 1e-9
+
+
+def _print_fig3d(label, payload):
+    """Prints an app's Fig. 3d statistics (``solve_time_stats`` of its
+    JSON payload: one report, or one an arm) beside the card's name."""
+    stats = payload["solve_time_stats"]
+    if "n_solves" in stats:
+        stats = {"RT-MPC": stats}
+    for arm, st in stats.items():
+        print("Fig. 3d, %s, %s: %d ticks, one dispatch a tick: p50 %.4f p99 "
+              "%.4f max %.4f ms (%s)"
+              % (label, arm, st["n_solves"], st["median_ms"], st["p99_ms"],
+                 st["max_ms"], torch.cuda.get_device_name(0)))
+        _require(st["n_solves"] > 0 and np.isfinite(st["max_ms"]), arm)
+
+
+def phase_fig3d_ip(sc, setups, dev):
+    """Phase 20: Fig. 3d under the structured interior point in float64,
+    one tick a dispatch, each tick one replay of a one-tick CUDA graph that
+    holds the whole interior point (its fixed iteration budget, no read of
+    the device): its first ticks equal the same ticks run eagerly (early
+    exit) to ``IP_GRAPH_TOL``, then results_linear's statistics at its
+    full T."""
+    from rtmpc_tpu_torch.apps import results_linear
+    from rtmpc_tpu_torch.apps.common import (IP_ITERS, fig3d_inputs,
+                                             solve_time_stats)
+    from rtmpc_tpu_torch.parallel import make_batched_rollout
+    from rtmpc_tpu_torch.parallel.session import Session
+    args = results_linear.parse_args(["--device", "cuda", "--no-figures"])
+    arrays, cfg = setups["tube"].to_device(torch.float64, dev,
+                                           solver="ip_riccati",
+                                           ip_iters=IP_ITERS)
+    inputs = fig3d_inputs(args.seed, sc, T_FIG3D)
+    refs, w, theta, gamma = (
+        torch.as_tensor(a[:GRAPH_TICKS], dtype=d).to(dev)
+        for a, d in zip(inputs, (torch.float64, torch.float64, torch.int32,
+                                 torch.int32)))
+    t0 = time.perf_counter()
+    ses = Session(arrays, cfg, 1, sc.x0)
+    torch.cuda.synchronize()
+    print("one-tick IP session built in %.2f s: capture %.2f s, "
+          "instantiation %.2f s (warm-up tick, eager, included in the "
+          "first)" % (time.perf_counter() - t0, ses.capture_s,
+                      ses.instantiate_s))
+    _require(ses.graph is not None)
+    ticks = []
+    for t in range(GRAPH_TICKS):
+        o = ses.advance(refs[t:t + 1], w[t:t + 1], theta[t:t + 1],
+                        gamma[t:t + 1])
+        ticks.append(tuple(a.clone() for a in o))
+    graph = [torch.cat(f, dim=1) for f in zip(*ticks)]
+    t0 = time.perf_counter()
+    _, eager = make_batched_rollout(arrays, cfg, GRAPH_TICKS)(
+        torch.as_tensor(sc.x0, dtype=torch.float64).to(dev)[None],
+        refs[None], w[None], theta[None], gamma[None])
+    torch.cuda.synchronize()
+    t_eager = time.perf_counter() - t0
+    dg = max(_max_err(a, b) for a, b in zip(graph, eager))
+    print("first %d ticks, graph vs eager (%.3f s a tick eagerly): max "
+          "|diff| over all outputs %.3e (bar %g)"
+          % (GRAPH_TICKS, t_eager / GRAPH_TICKS, dg, IP_GRAPH_TOL))
+    _require(dg <= IP_GRAPH_TOL, dg)
+    _require(bool(eager.feasible.all()))
+    t0 = time.perf_counter()
+    stats = solve_time_stats(args, sc,
+                             {"RT-MPC": (arrays, cfg, "consistent")},
+                             T_FIG3D)
+    print("results_linear Fig. 3d under ip_riccati (float64), %d ticks, "
+          "in %.1f s" % (T_FIG3D, time.perf_counter() - t0))
+    _print_fig3d("results_linear ip_riccati", {"solve_time_stats":
+                                               stats["RT-MPC"]})
+    return stats["RT-MPC"]
+
+
+def phase_estimate_w(sc, dev):
+    """Phase 21: ``estimate_w`` at its defaults on the card, its two
+    checks, and its box against the port's float64 run on the CPU from the
+    same initial states (1e-10)."""
+    from rtmpc_tpu_torch.apps import estimate_w
+    args = estimate_w.parse_args(["--device", "cuda"])
+    out = estimate_w.run(args)
+    _require(out["ok"], "estimate_w checks")
+    x0s = estimate_w.draw_initial_states(args.n_rollouts, args.seed)
+    box_cpu, _ = estimate_w.estimate_w_box(sc, x0s, 150)
+    d = float(np.abs(out["w_box"] - box_cpu).max())
+    print("estimate_w: %d rollouts x 150 steps on the card in %.3f s; box "
+          "against the CPU run %.3e" % (args.n_rollouts, out["seconds"], d))
+    _require(d <= 1e-10, d)
+
+
+def phase_animations(setups):
+    """Phase 22: ``create_animations.run`` under ``--solver cuda`` at full
+    T, K1 at B=1 on the cartpole QPs (2 launches a step on each arm), the
+    JAX app's checks; no rendering.  Gated: both arms finite, the tube
+    arm's |phi| < 0.3.  The tracking arm's |phi| bound is printed, not
+    gated: the non-robust arm reaches it under ADMM in float64 on the CPU
+    too (max |phi| 0.300 on the same seed, 0.177 under ip_riccati), so it
+    reads the ADMM's accuracy on the cartpole, not K1's.  Returns the
+    launches."""
+    from rtmpc_tpu_torch.apps import create_animations
+    from rtmpc_tpu_torch.ops.qp_cuda import admm_solve_cuda
+    args = create_animations.parse_args(
+        ["--device", "cuda", "--solver", "cuda", "--no-figures"])
+    _reset_launches()              # the main path's run: counts from 0
+    out = create_animations.run(args, setups)
+    torch.cuda.synchronize()
+    T = out["traj"]["tube"].shape[0] - 1
+    print("create_animations --solver cuda: T=%d, seconds %s, launches %s "
+          "(l2 path %d); checks %s"
+          % (T, {k: round(v, 3) for k, v in out["seconds"].items()},
+             out["launches"], admm_solve_cuda.launches_by_path["l2"],
+             "pass" if out["ok"] else
+             "FAIL (printed; the tracking arm's |phi| bound is not gated)"))
+    _require(all(bool(np.isfinite(t).all()) for t in out["traj"].values()),
+             "create_animations finite")
+    _require(out["max_phi"]["tube"] < 0.3, out["max_phi"])
+    _require(out["launches"] == {"tube": 2 * T, "track": 2 * T},
+             out["launches"])
+    _require(admm_solve_cuda.launches_by_path["l2"] == 4 * T)
+    return 4 * T
+
+
+def phase_k1_cluster_b1(sc, setups, dev):
+    """K1's cluster path at B=1, the shape of ``create_animations`` and of
+    Fig. 3d under ``--solver cuda`` (the tube QP, 200 iterations): its time
+    beside the plain version's, its bound and ``torch.mm``.  (Its errors
+    against the plain version at B=1 are phase 8's.)"""
+    from rtmpc_tpu_torch.apps.common import ADMM_SCHEDULE
+    spec = setups["tube"].to_device(torch.float32, dev, solver="cuda",
+                                    **ADMM_SCHEDULE)[0].admm
+    th = _cartpole_thetas(sc, 1, np.random.default_rng(22), dev,
+                          torch.float32)
+    n_p, m_p = spec.Kinv.shape[0], spec.As.shape[0]
+    return _timed_phase("cartpole tube %d+%d" % (n_p, m_p), 1, spec, th,
+                        CP_ITERS, dev, 20)
+
+
+# Phase 23, the condensed QPs.
+B_COND_CP = 200
+T_COND_CP = 60
+
+
+def _condensed_qps(setup, dev, **kw):
+    """``(arrays32, cfg32, (specs, specs64))`` of a condensed controller
+    under solver "cuda"."""
+    a32, c32 = setup.to_device(torch.float32, dev, solver="cuda",
+                               condensed=True, **kw)
+    a64, _ = setup.to_device(torch.float64, dev, solver="cuda",
+                             condensed=True, **kw)
+    return a32, c32, ((a32.admm, a32.admm2), (a64.admm, a64.admm2))
+
+
+def _timed_phase(label, B, spec, th, iters, dev, reps):
+    from rtmpc_tpu_torch.ops.kernel_bench import time_ms as _time_ms
+    from rtmpc_tpu_torch.ops.qp_cuda import (_admm_solve_cuda_plain,
+                                             admm_solve_cuda)
+    t = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        fn = admm_solve_cuda if which == "kernel" else _admm_solve_cuda_plain
+        t[which].append(_time_ms(lambda: fn(spec, th, None, iters),
+                                 reps=reps))
+    print("%s, one %d-iteration phase, B=%d: kernel %s ms, plain %s ms"
+          % (label, iters, B, t["kernel"], t["plain"]))
+    ms, plain_ms = (float(np.mean(t[k])) for k in ("kernel", "plain"))
+    return ms, plain_ms, _product_yardstick(label, B, spec, th, iters, ms,
+                                            dev)
+
+
+def phase_condensed_flagship(setup, dev):
+    """Phase 23a: K1 on the condensed flagship QP (smem path) against its
+    plain version at B=16384 and B=1, timed at both; then the condensed
+    flagship closed loop at B=16384, T=120 through the kernel: 2 launches
+    a step, feasible, finite, the tube invariant at every step, and its
+    first B_PARITY rollouts within DX_PARITY of a float64 CPU run of
+    solver "admm" on the same condensed QP.  Returns the launches, the
+    largest error and the timings at B=16384 and B=1."""
+    from rtmpc_tpu_torch.ops.qp_cuda import (admm_solve_cuda, kernel_path)
+    from rtmpc_tpu_torch.parallel import make_batched_rollout
+    kw = dict(iters=ITERS, iters2=ITERS2, alpha=ALPHA, rho2_scale=RHO2_SCALE)
+    a32, c32, (specs, specs64) = _condensed_qps(setup, dev, **kw)
+    n_p, m_p = a32.admm.Kinv.shape[0], a32.admm.As.shape[0]
+    print("condensed flagship: %d variables, QP %d+%d (%s path)"
+          % (c32.n_red, n_p, m_p, kernel_path(n_p + m_p)))
+    _require(kernel_path(n_p + m_p) == "smem", (n_p, m_p))
+    from rtmpc_tpu_torch.ops.kernel_bench import (COND_F64_SMALL_B,
+                                                  COND_RPRIM_ATOL,
+                                                  COND_Y_ATOL, Z_ATOL)
+    rng = np.random.default_rng(23)
+
+    def theta(B):
+        return torch.tensor(rng.uniform(-2, 2, (B, 4)), dtype=torch.float32,
+                            device=dev)
+
+    thf = theta(B_FULL)
+    err = _compare(specs, specs64, thf, thf, True, (ITERS, ITERS2),
+                   (Z_ATOL, COND_Y_ATOL, COND_RPRIM_ATOL),
+                   label="condensed flagship")
+    th1 = theta(1)
+    err = max(err, _compare(specs, specs64, th1, th1, True, (ITERS, ITERS2),
+                            (Z_ATOL, COND_Y_ATOL, COND_RPRIM_ATOL),
+                            label="condensed flagship",
+                            f64_bars=COND_F64_SMALL_B))
+    full = _timed_phase("condensed flagship %d+%d" % (n_p, m_p), B_FULL,
+                        a32.admm, thf, ITERS, dev, 20)
+    b1 = _timed_phase("condensed flagship %d+%d" % (n_p, m_p), 1, a32.admm,
+                      th1, ITERS, dev, 50)
+
+    theta_, gamma, w = _inputs(B_FULL, dev, seed=23)
+    refs = _bench_refs(B_FULL, dev, torch.float32)
+    x0 = torch.zeros(B_FULL, 2, dtype=torch.float32, device=dev)
+    _reset_launches()              # the main path's run: counts from 0
+    t0 = time.perf_counter()
+    carry, outs = make_batched_rollout(a32, c32, T)(x0, refs, w, theta_,
+                                                    gamma)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = admm_solve_cuda.launches
+    xs = torch.cat([x0[:, None], outs.x[:, :-1]], dim=1)
+    viol = ((xs - outs.x_nom) @ a32.Hz.T - a32.hz).amax().item()
+    # parity on phase 7's inputs: against the plain float32 version on the
+    # card, and against float64 on the CPU no further than F64_RATIO times
+    # plain float32's own distance (condensing makes the float32 loop
+    # itself drift further from float64 than the full QP's does)
+    from rtmpc_tpu_torch.ops.kernel_bench import F64_RATIO
+    n = B_PARITY
+    theta_, gamma, w = _inputs(n, dev, seed=1)
+    refs, x0 = refs[:n], x0[:n]
+    _, ok_ = make_batched_rollout(a32, c32, T)(x0, refs, w, theta_, gamma)
+    _, oa = make_batched_rollout(
+        a32, dataclasses.replace(c32, solver="admm"), T)(x0, refs, w, theta_,
+                                                         gamma)
+    a64, c64 = setup.to_device(torch.float64, "cpu", solver="admm",
+                               condensed=True, **kw)
+    _, o64 = make_batched_rollout(a64, c64, T)(
+        x0.double().cpu(), refs.double().cpu(), w.cpu(), theta_.cpu(),
+        gamma.cpu())
+    dx, dx64, dx_plain64 = (_max_err(ok_.x, oa.x), _max_err(ok_.x, o64.x),
+                            _max_err(oa.x, o64.x))
+    bar64 = max(DX_PARITY, F64_RATIO * dx_plain64)
+    print("condensed flagship loop B=%d T=%d: %.3f s (first run), kernel "
+          "launches %d, tube invariant max Hz(x - x_nom) - hz %.3e; parity "
+          "B=%d: max|dx| cuda-vs-admm %.3e (bar %g), cuda-vs-admm(f64, CPU) "
+          "%.3e (bar %.3e), admm-vs-admm(f64, CPU) %.3e"
+          % (B_FULL, T, dt, launches, viol, n, dx, DX_PARITY, dx64, bar64,
+             dx_plain64))
+    _require(launches == 2 * T, launches)
+    _require(bool(carry.feasible.all()) and bool(outs.feasible.all()))
+    for name, t in outs._asdict().items():
+        if t.is_floating_point():
+            _require(bool(torch.isfinite(t).all()), name)
+    _require(viol <= TUBE_TOL, viol)
+    _require(dx <= DX_PARITY and dx64 <= bar64, (dx, dx64, bar64))
+    _require(torch.equal(ok_.Theta.cpu(), o64.Theta))
+    return launches, err, full, b1
+
+
+def phase_condensed_cartpole(sc, setups, dev):
+    """Phase 23b: K1 on the condensed cartpole QPs (cluster path, 16 rows
+    a cluster) against its plain version at B=200 and B=1, each timed at
+    B=200; then a condensed RT-MPC closed loop through the kernel, B=200
+    rollouts of T_COND_CP steps on the sweep's draws: 2 launches a step,
+    finite.  Returns the launches, the largest error and the tracking
+    QP's timing."""
+    from rtmpc_tpu_torch.apps.common import ADMM_SCHEDULE
+    from rtmpc_tpu_torch.ops.kernel_bench import (COND_CP_F64_SMALL_B,
+                                                  COND_CP_Y_ATOL, CP_Z_ATOL)
+    from rtmpc_tpu_torch.ops.qp_cuda import (admm_solve_cuda, kernel_path,
+                                             kernel_rows)
+    from rtmpc_tpu_torch.parallel import make_batched_rollout
+    from rtmpc_tpu_torch.parallel.mc import draw_sweep
+    rng = np.random.default_rng(24)
+    err, timing, frozen = 0.0, {}, {}
+    for name in ("tube", "track"):
+        a32, c32, (specs, specs64) = _condensed_qps(setups[name], dev,
+                                                    **ADMM_SCHEDULE)
+        frozen[name] = (a32, c32)
+        n_p, m_p = a32.admm.Kinv.shape[0], a32.admm.As.shape[0]
+        rows = kernel_rows(n_p, m_p)
+        print("condensed cartpole %s: %d variables, QP %d+%d (%s path, %d "
+              "rows a cluster)" % (name, c32.n_red, n_p, m_p,
+                                   kernel_path(n_p + m_p), rows))
+        _require(kernel_path(n_p + m_p) == "l2" and rows == 16,
+                 (name, n_p, m_p, rows))
+        for B in (B_COND_CP, 1):
+            th = _cartpole_thetas(sc, B, rng, dev, torch.float32)
+            err = max(err, _compare(
+                specs, specs64, th, th, B > 1, (CP_ITERS, CP_ITERS),
+                (CP_Z_ATOL, COND_CP_Y_ATOL), label="condensed %s" % name,
+                f64_bars=COND_CP_F64_SMALL_B if B == 1 else None))
+        th = _cartpole_thetas(sc, B_COND_CP, rng, dev, torch.float32)
+        timing[name] = _timed_phase("condensed cartpole %s %d+%d"
+                                    % (name, n_p, m_p), B_COND_CP,
+                                    a32.admm, th, CP_ITERS, dev, 5)
+    a32, c32 = frozen["tube"]
+    g = torch.Generator(device="cpu").manual_seed(24)
+    d = draw_sweep(g, T_COND_CP, B_COND_CP // 10, [0.1 * i for i in range(10)],
+                   4)
+    w = (d.u * torch.tensor(sc.w_hi - sc.w_lo) + torch.tensor(sc.w_lo))
+    refs = torch.zeros(B_COND_CP, T_COND_CP, 4, device=dev)
+    refs[..., 0] = sc.ref_value
+    x0 = torch.tensor(sc.x0, dtype=torch.float32, device=dev).expand(
+        B_COND_CP, 4)
+    _reset_launches()              # the main path's run: counts from 0
+    t0 = time.perf_counter()
+    carry, outs = make_batched_rollout(a32, c32, T_COND_CP)(
+        x0, refs, w.to(dev, torch.float32), d.theta.to(dev),
+        d.gamma.to(dev))
+    torch.cuda.synchronize()
+    launches = admm_solve_cuda.launches
+    xs = torch.cat([x0[:, None], outs.x[:, :-1]], dim=1)
+    viol = ((xs - outs.x_nom) @ a32.Hz.T - a32.hz).amax().item()
+    print("condensed RT-MPC loop, cartpole, B=%d T=%d: %.3f s, kernel "
+          "launches %d, feasible %d of %d, tube invariant max Hz(x - x_nom) "
+          "- hz %.3e (printed)" % (B_COND_CP, T_COND_CP,
+                                   time.perf_counter() - t0, launches,
+                                   int(carry.feasible.sum()), B_COND_CP,
+                                   viol))
+    _require(launches == 2 * T_COND_CP, launches)
+    _require(bool(torch.isfinite(outs.x).all()))
+    return launches, err, timing["track"]
 
 
 def main():
@@ -893,7 +1267,9 @@ def main():
     T_sweep = out["payload"]["T"]
     _require(counts["tube"]["kernel_launches"] == 2 * T_sweep, counts)
     _require(counts["track"]["kernel_launches"] == 3 * T_sweep, counts)
-    _require(launches_l2 == 5 * T_sweep, launches_l2)
+    _require(launches_l2 == 5 * T_sweep + FIG3D_LAUNCHES["results_linear"],
+             launches_l2)
+    _print_fig3d("results_linear --solver cuda", out["payload"])
     viol = _sample_tube_violation(out["tube"], out["arrays_tube"])
     print("tube invariant on the sample trajectories: max Hz(x - x_nom) "
           "- hz = %.3e (Z has %d rows)" % (viol, setups["tube"].Z.nrows))
@@ -921,6 +1297,30 @@ def main():
     # phase 9, on the nominal states of the last arm (RT-MPC, float64)
     phase_ip_card_vs_cpu(sc, fig3a, dev, x_nom)
     phase_plant(sc, dev)
+
+    # Fig. 3d through the captured interior point, the remaining apps and
+    # the condensed QPs
+    t0 = time.perf_counter()
+    phase_fig3d_ip(sc, fig3a, dev)
+    print("phase 20 took %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    phase_estimate_w(sc, dev)
+    print("phase 21 took %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    anim_launches = phase_animations(fig3a)
+    record("admm_solve_cuda (admm_kernel_cluster at B=1: create_animations "
+           "and Fig. 3d under --solver cuda, 112+792 and 112+840)",
+           anim_launches, max(v[0] for v in by_arm.values()),
+           *phase_k1_cluster_b1(sc, fig3a, dev))
+    print("phase 22 took %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    launches, err, full, _ = phase_condensed_flagship(setup, dev)
+    record("admm_solve_cuda (admm_kernel, condensed flagship 16+96)",
+           launches, err, *full)
+    launches, err, timing = phase_condensed_cartpole(sc, fig3a, dev)
+    record("admm_solve_cuda (admm_kernel_cluster, condensed cartpole 32+712 "
+           "and 32+760)", launches, err, *timing)
+    print("phase 23 took %.1f s" % (time.perf_counter() - t0))
     _require("jax" not in sys.modules)
 
     print("chip_smoke.py took %.1f s" % (time.perf_counter() - t_start))

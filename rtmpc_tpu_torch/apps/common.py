@@ -97,14 +97,136 @@ def add_sweep_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return p
 
 
+def add_figure_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """``--no-figures``, for the apps that draw figures."""
+    p.add_argument("--no-figures", action="store_true",
+                   help="draw no figures (they need matplotlib, and the GIFs "
+                        "PIL too)")
+    return p
+
+
+def results_dir() -> str:
+    """Where the apps write their figures: ``$RTMPC_RESULTS_DIR``, else
+    ``results/rtmpc_tpu_torch`` in the repository (git-ignored)."""
+    return os.environ.get("RTMPC_RESULTS_DIR",
+                          os.path.join(REPO_ROOT, "results",
+                                       "rtmpc_tpu_torch"))
+
+
+def figures_on(args, *modules) -> bool:
+    """Whether the app draws its figures: not under ``--no-figures``.
+    Where figures are asked for, matplotlib (and each of ``modules``) must
+    import: else the app exits non-zero, before any work, with a message
+    that names ``--no-figures``; it never skips them silently."""
+    if args.no_figures:
+        return False
+    for name in ("matplotlib",) + modules:
+        try:
+            importlib.import_module(name)
+        except ImportError:
+            sys.exit(f"the figures need {name}, which this Python cannot "
+                     "import; pass --no-figures to run without them")
+    import matplotlib
+    matplotlib.use("Agg")
+    return True
+
+
+def savefig(fig, name: str) -> str:
+    """Write ``fig`` as ``name`` under ``results_dir()`` and close it."""
+    import matplotlib.pyplot as plt
+    os.makedirs(results_dir(), exist_ok=True)
+    path = os.path.join(results_dir(), name)
+    fig.savefig(path, dpi=120, bbox_inches="tight")
+    plt.close(fig)
+    print(f"[figure] {path}")
+    return path
+
+
+def solvetime_hist_figure(stats_by_label: dict, name: str) -> str:
+    """The reference's solve-time histogram (Fig. 3d,
+    ``results_linear_system.py:397-404``; two arms side by side in
+    ``results_linear_system_with_extendedMPC.py:409-431``), drawn from
+    ``latency_report``'s bins and counts by arm label, as the JAX
+    package's ``solvetime_hist_figure`` draws it."""
+    import matplotlib.pyplot as plt
+    fig, ax = plt.subplots(figsize=(7, 4))
+    n = max(len(stats_by_label), 1)
+    for i, (label, st) in enumerate(stats_by_label.items()):
+        edges = np.asarray(st["hist_bins_ms"], float)
+        counts = np.asarray(st["hist_counts"], float)
+        wbin = (edges[1] - edges[0]) / (n + 0.5)
+        ax.bar(edges[:-1] + i * wbin, counts, width=wbin, align="edge",
+               label=label)
+    ax.set_xlabel("Computational time [ms] (clipped to 2.5-20 ms bins)")
+    ax.set_ylabel("Occurrences")
+    ax.set_title("Per-step solve time (dispatch-inclusive)")
+    if len(stats_by_label) > 1:
+        ax.legend()
+    return savefig(fig, name)
+
+
+def boxplot_figure(results: dict, probs, name: str, ylabel: str) -> str:
+    """Tracking-error box plots per loss probability, one box an arm
+    (Figs. 3a-3c; ``results`` by arm label), NaN (stopped) runs left out
+    as the reference filters them (``results_linear_system.py:334-339``)."""
+    import matplotlib.pyplot as plt
+    fig, ax = plt.subplots(figsize=(9, 5))
+    n_arms = len(results)
+    pos = np.arange(len(probs)) * (n_arms + 0.5)
+    handles = []
+    for ai, res in enumerate(results.values()):
+        data = [e[~np.isnan(e)] for e in res.tracking_error]
+        data = [d if d.size else np.array([np.nan]) for d in data]
+        bp = ax.boxplot(data, positions=pos + (ai - (n_arms - 1) / 2) * 0.8,
+                        widths=0.6, patch_artist=True, sym="x",
+                        boxprops=dict(facecolor=f"C{ai}"))
+        handles.append(bp["boxes"][0])
+    ax.set_xticks(pos)
+    ax.set_xticklabels([f"{p:.1f}" for p in probs])
+    ax.set_xlabel("Packet Loss Probability")
+    ax.set_ylabel(ylabel)
+    ax.legend(handles, list(results))
+    return savefig(fig, name)
+
+
+def trajectory_figure(results: dict, probs, sc, name: str) -> str:
+    """Each arm's sample trajectory at the loss probability nearest 0.4:
+    the cart position against the reference and the pole angle against
+    its +-0.3 rad limit (the Fig. 3a inset)."""
+    import matplotlib.pyplot as plt
+    fig, (ax1, ax2) = plt.subplots(nrows=2, figsize=(8, 5))
+    pi = min(range(len(probs)), key=lambda i: abs(probs[i] - 0.4))
+    for label, res in results.items():
+        tg = sc.Th * np.arange(res.sample_traj.shape[1])
+        ax1.plot(tg, res.sample_traj[pi, :, 0], label=label)
+        ax2.plot(tg, res.sample_traj[pi, :, 2], label=label)
+    ax1.axhline(sc.ref_value, color="k", lw=1, label="r(k)")
+    ax1.set_ylabel("Position p [m]")
+    ax1.legend()
+    ax1.grid()
+    ax2.axhline(0.3, color="r")
+    ax2.axhline(-0.3, color="r")
+    ax2.set_ylabel("Angle phi [rad]")
+    ax2.set_xlabel("Time [s]")
+    ax2.grid()
+    return savefig(fig, name)
+
+
+def require_device(name: str) -> torch.device:
+    """The torch device ``name``; exits non-zero if it is a CUDA device and
+    none is available (there is no fallback to the CPU)."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        sys.exit(f"--device {name}: no CUDA device is available")
+    return dev
+
+
 def resolve(args) -> torch.device:
     """Fill in the defaults that depend on other flags and check that the
     device exists; exits non-zero without a CUDA device for ``cuda``."""
     if args.dtype is None:
         args.dtype = "float32" if args.solver == "cuda" else "float64"
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        sys.exit(f"--device {args.device}: no CUDA device is available")
+    dev = require_device(args.device)
     if dev.type == "cuda" and args.solver == "cuda" \
             and args.dtype != "float32":
         sys.exit("--solver cuda on a CUDA device runs in float32 only")
@@ -252,6 +374,46 @@ def sweep_draws(args, dev, T, n_mc, probs, nx, seed0_file):
             "draws)")
 
 
+# Fig. 3d: the per-tick latencies are taken on one rollout at this loss
+# probability (``rtmpc_tpu/apps/results_linear.py:108-113``)
+FIG3D_P = 0.4
+
+
+def fig3d_inputs(seed: int, sc, T: int):
+    """The inputs of Fig. 3d's rollout, the JAX apps' own: numpy's
+    ``default_rng(seed + 1)``, the loss masks at ``FIG3D_P`` (the first
+    packets delivered) then the disturbances, so the same bits; the
+    reference at ``sc.ref_value``.  Returns ``(refs, w, theta, gamma)``,
+    ``(T, 4)`` and ``(T,)`` numpy arrays."""
+    rng = np.random.default_rng(seed + 1)
+    theta = (rng.uniform(size=T) >= FIG3D_P).astype(np.int64)
+    gamma = (rng.uniform(size=T) >= FIG3D_P).astype(np.int64)
+    theta[0] = gamma[0] = 1
+    w = rng.uniform(sc.w_lo, sc.w_hi, size=(T, 4))
+    refs = np.zeros((T, 4))
+    refs[:, 0] = sc.ref_value
+    return refs, w, theta, gamma
+
+
+def solve_time_stats(args, sc, arms: dict, T: int) -> dict:
+    """Fig. 3d's per-step solve-time statistics (the reference's
+    methodology, ``results_linear_system.py:304-320``): each arm ``label:
+    (arrays, cfg, actuator_mode)`` runs one T-tick rollout from the
+    scenario's x0 on ``fig3d_inputs(args.seed, sc, T)``, one dispatch a
+    tick (``parallel/latency.py:measure_step_latencies``); returns
+    ``latency_report``'s statistics by label."""
+    from ..parallel import latency
+    refs, w, theta, gamma = fig3d_inputs(args.seed, sc, T)
+    stats = {}
+    for label, (arrays, cfg, mode) in arms.items():
+        lat = latency.measure_step_latencies(arrays, cfg, refs, w, theta,
+                                             gamma, x0=sc.x0,
+                                             actuator_mode=mode)
+        stats[label] = latency.latency_report(
+            lat, f"per-step, dispatch-inclusive, {label}")
+    return stats
+
+
 def cartpole_controllers(sc, names) -> dict:
     """The Results apps' controllers on the cartpole scenario ``sc``, by
     name: ``"tube"`` (RT-MPC: tube tracking, fixed initial state), ``"ext"``
@@ -361,9 +523,12 @@ def run_labelled_sweep(args, app: str, arms, *, setups=None, plant_step=None,
     that go first into the JSON payload.
 
     Returns ``ok`` (the comparison's verdict where it gates, else True),
-    ``results``, ``counts`` and ``arrays`` by arm label, ``rows``,
-    ``payload``, ``compared`` (None if not compared) and the steps ``T``."""
+    ``results``, ``counts``, ``arrays`` and ``cfgs`` by arm label, ``rows``,
+    ``payload`` (the app adds its keys and saves it), ``compared`` (None if
+    not compared), the steps ``T``, the scenario ``sc``, the loss
+    probabilities ``probs`` and ``figures`` (``figures_on``)."""
     dev = resolve(args)
+    figures = figures_on(args)
     dtype = getattr(torch, args.dtype)
     sc = cartpole_scenario()
     T, n_mc, probs = EXT_QUICK if args.quick else (sc.T, args.n_mc,
@@ -405,7 +570,6 @@ def run_labelled_sweep(args, app: str, arms, *, setups=None, plant_step=None,
         "rows": rows,
         "wall_time_s": {n: r.wall_time_s for n, r in results.items()},
         "counts": counts}
-    save_summary_json(args.save_json, payload)
 
     ok, compared = True, None
     if (truth and source == SEED0_SOURCE and not args.quick and n_mc == 20):
@@ -421,5 +585,7 @@ def run_labelled_sweep(args, app: str, arms, *, setups=None, plant_step=None,
                   " (not gated: the ADMM does not reach trajectory parity "
                   "on the cartpole)")
     return dict(ok=ok, results=results, counts=counts, rows=rows,
-                payload=payload, compared=compared, T=T,
-                arrays={label: a for label, (a, _) in frozen.items()})
+                payload=payload, compared=compared, T=T, sc=sc, probs=probs,
+                figures=figures,
+                arrays={label: a for label, (a, _) in frozen.items()},
+                cfgs={label: c for label, (_, c) in frozen.items()})

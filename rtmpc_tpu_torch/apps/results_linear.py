@@ -4,7 +4,7 @@ of ``rtmpc_tpu/apps/results_linear.py``).
     python3 -m rtmpc_tpu_torch.apps.results_linear --device cuda \\
         [--solver ip_riccati|ip|cuda|admm] [--dtype float64] [--n-mc 20] \\
         [--quick] [--seed 0] [--draws PATH] [--checkpoint PATH] \\
-        [--n-chunks 1] [--save-json PATH]
+        [--n-chunks 1] [--save-json PATH] [--no-figures]
 
 Robust tube tracking MPC (RT-MPC: tube tracking, consistent actuator)
 against non-robust tracking MPC (R-MPC: smart actuator, the arm stops on
@@ -12,7 +12,12 @@ an infeasibility certificate) over loss probabilities 0..0.9, n_mc runs of
 T=250 steps each; each arm is one batched rollout of all its runs.  Prints
 the mean RMS tracking error per loss probability, the infeasibility counts
 of R-MPC, the wall time of each arm and of a solve, and runs the JAX app's
-pass/fail checks.  Writes no figures and no solve-time histogram.
+pass/fail checks.  Fig. 3d: the RT-MPC arm's per-step solve times on one
+T-step rollout at p=0.4, one dispatch a tick (on the card one replay of a
+one-tick CUDA graph, the interior point's loop included), reported as the
+JSON's ``solve_time_stats`` (``common.solve_time_stats``).  Figures, under
+``results/rtmpc_tpu_torch/`` (matplotlib; ``--no-figures`` to skip them):
+the solve-time histogram, the box plots and the sample trajectories.
 
 The draws: at ``--seed 0`` and the full size, the ones the JAX app feeds
 both arms, committed as ``rtmpc_tpu_torch/data/results_linear_seed0.npz``;
@@ -37,9 +42,12 @@ import numpy as np
 import torch
 
 from .common import (DATA_DIR, FULL_PROBS, REPO_ROOT, RESULTS_ADMM_ITERS,
-                     SEED0_SOURCE, add_sweep_args, cartpole_controllers, check,
-                     device_name, load_compare_linear, make_parser, resolve,
-                     run_arms, save_summary_json, solver_kwargs, sweep_draws)
+                     SEED0_SOURCE, add_figure_args, add_sweep_args,
+                     boxplot_figure, cartpole_controllers, check, device_name,
+                     figures_on, load_compare_linear, make_parser, resolve,
+                     run_arms, save_summary_json, solve_time_stats,
+                     solver_kwargs, solvetime_hist_figure, sweep_draws,
+                     trajectory_figure)
 from .scenarios import cartpole_scenario
 
 DRAWS_SEED0 = os.path.join(DATA_DIR, "results_linear_seed0.npz")
@@ -48,7 +56,8 @@ QUICK_PROBS = [0.0, 0.3, 0.6, 0.9]
 
 
 def parse_args(argv=None):
-    return add_sweep_args(make_parser(__doc__)).parse_args(argv)
+    return add_figure_args(add_sweep_args(make_parser(__doc__))).parse_args(
+        argv)
 
 
 def run(args, setups=None) -> dict:
@@ -57,6 +66,7 @@ def run(args, setups=None) -> dict:
     ``setups``: the ``(tube, track)`` controllers already set up as below
     (a caller that runs several sweeps sets them up once)."""
     dev = resolve(args)
+    figures = figures_on(args)
     dtype = getattr(torch, args.dtype)
     sc = cartpole_scenario()
     if args.quick:
@@ -113,13 +123,21 @@ def run(args, setups=None) -> dict:
                          int(res_track.infeasible_counts[i])})
         print(f"  {p:.1f}   {te_tube:12.5f} {te_track:15.5f} "
               f"{int(res_track.infeasible_counts[i]):8d}/{n_mc}")
+    stats = solve_time_stats(
+        args, sc, {"RT-MPC": (arrays_tube, cfg_tube, "consistent")}, T)
     payload = {
         "app": "results_linear", "solver": args.solver, "dtype": args.dtype,
         "backend": dev.type, "device": device_name(dev), "n_mc": n_mc,
         "T": T, "seed": args.seed, "draws": source, "rows": rows,
         "wall_time_s": {arm: res.wall_time_s for arm, res in results.items()},
-        "counts": counts}
+        "counts": counts, "solve_time_stats": stats["RT-MPC"]}
     save_summary_json(args.save_json, payload)
+    if figures:
+        arms = {"RT-MPC": res_tube, "R-MPC": res_track}
+        solvetime_hist_figure(stats, "results_linear_solvetime_hist.png")
+        boxplot_figure(arms, probs, "results_linear_boxplot.png",
+                       "Average Tracking Error")
+        trajectory_figure(arms, probs, sc, "results_linear_trajectories.png")
 
     ok = check("tube arm always feasible", bool(res_tube.feasible.all()))
     e0 = float(np.nanmean(res_tube.tracking_error[0]))

@@ -4,7 +4,7 @@ of ``rtmpc_tpu/apps/results_linear_extended.py``, paper Section IV.F).
     python3 -m rtmpc_tpu_torch.apps.results_linear_extended --device cuda \\
         [--solver ip_riccati|ip|cuda|admm] [--dtype float64] [--n-mc 20] \\
         [--quick] [--seed 0] [--draws PATH] [--checkpoint PATH] \\
-        [--n-chunks 1] [--save-json PATH]
+        [--n-chunks 1] [--save-json PATH] [--no-figures]
 
 Adds the ExtendedTubeTrackingMPC arm (two QPs selected by the previous
 step's gamma, robust estimator, consistent actuator in extended mode) to
@@ -12,8 +12,12 @@ the RT-MPC / R-MPC sweep of ``results_linear``: three arms over loss
 probabilities 0..0.9, n_mc runs of T=250 steps each, every arm one batched
 rollout of all its runs.  Prints the mean RMS tracking error per loss
 probability and arm, the wall time of each arm, and runs the JAX app's two
-checks.  Writes no figures and no solve-time histogram (the JSON has no
-``solve_time_stats``).
+checks.  The dual solve-time histograms (the reference's
+``results_linear_system_with_extendedMPC.py:409-431``): RT-MPC and
+Ext-RT-MPC each time one rollout of ``min(T, 120)`` steps at p=0.4, one
+dispatch a tick, reported by arm as the JSON's ``solve_time_stats``.
+Figures, under ``results/rtmpc_tpu_torch/`` (matplotlib; ``--no-figures``
+to skip them): the dual histogram and the box plots.
 
 The draws: at ``--seed 0`` and the full size, the ones the JAX app feeds
 all three arms, committed as
@@ -30,17 +34,23 @@ import os
 
 import numpy as np
 
-from .common import (REPO_ROOT, add_sweep_args, check, make_parser,
-                     run_labelled_sweep)
+from .common import (REPO_ROOT, add_figure_args, add_sweep_args,
+                     boxplot_figure, check, make_parser, run_labelled_sweep,
+                     save_summary_json, solve_time_stats,
+                     solvetime_hist_figure)
 
 TRUTH = os.path.join(REPO_ROOT, "RESULTS_LINEAR_EXT_CPU_F64_JAX.json")
+# the dual histograms' rollouts are at most this long
+# (``rtmpc_tpu/apps/results_linear_extended.py:109``)
+T_LAT = 120
 ARMS = (("RT-MPC", "tube", "consistent", None),
         ("Ext-RT-MPC", "ext", "consistent", None),
         ("R-MPC", "track", "smart", "certificate"))
 
 
 def parse_args(argv=None):
-    return add_sweep_args(make_parser(__doc__)).parse_args(argv)
+    return add_figure_args(add_sweep_args(make_parser(__doc__))).parse_args(
+        argv)
 
 
 def run(args, setups=None, arms=None) -> dict:
@@ -55,6 +65,19 @@ def run(args, setups=None, arms=None) -> dict:
         truth=TRUTH)
     results = out["results"]
     tube_arms = [n for n in ("RT-MPC", "Ext-RT-MPC") if n in results]
+    modes = {label: mode for label, _, mode, _ in ARMS}
+    stats = solve_time_stats(
+        args, out["sc"],
+        {n: (out["arrays"][n], out["cfgs"][n], modes[n]) for n in tube_arms},
+        min(out["T"], T_LAT))
+    out["payload"]["solve_time_stats"] = stats
+    save_summary_json(args.save_json, out["payload"])
+    if out["figures"]:
+        solvetime_hist_figure(stats,
+                              "results_linear_extended_solvetime_hist.png")
+        boxplot_figure(results, out["probs"],
+                       "results_linear_extended_boxplot.png",
+                       "Average Tracking Error")
     ok = out["ok"]
     ok &= check("both tube arms always feasible",
                 all(bool(results[n].feasible.all()) for n in tube_arms),

@@ -4,7 +4,8 @@ of ``rtmpc_tpu/apps/results_nonlinear.py``).
     python3 -m rtmpc_tpu_torch.apps.results_nonlinear --device cuda \\
         [--extended] [--solver ip_riccati|ip|cuda|admm] [--dtype float64] \\
         [--n-mc 20] [--quick] [--seed 0] [--draws PATH] \\
-        [--checkpoint PATH] [--n-chunks 1] [--save-json PATH]
+        [--checkpoint PATH] [--n-chunks 1] [--save-json PATH] \\
+        [--no-figures]
 
 The controllers are designed on the linearized model, but the plant is the
 nonlinear cartpole stepped at 500 Hz under a zero-order hold of the 50 Hz
@@ -16,7 +17,10 @@ consistent actuator), R-MPC (tracking, smart actuator, stops on an
 infeasibility certificate) and, with ``--extended``, Ext-RT-MPC (extended
 tube tracking, which the reference's nonlinear benchmark stops on QP
 infeasibility too).  Prints the mean RMS tracking error per loss
-probability and arm and runs the JAX app's two checks; writes no figures.
+probability and arm and runs the JAX app's two checks.  Figures, under
+``results/rtmpc_tpu_torch/`` (matplotlib; ``--no-figures`` to skip them):
+the box plots (Figs. 3b/3c) and the sample trajectories.  Like the JAX
+app it reports no solve-time statistics.
 
 The draws: at ``--seed 0`` and the full size, the loss masks the JAX app
 feeds every arm (``rtmpc_tpu_torch/data/results_extended_seed0.npz``; its
@@ -33,8 +37,9 @@ import os
 import numpy as np
 
 from ..models.plants import cartpole_zoh_step
-from .common import (REPO_ROOT, add_sweep_args, check, make_parser,
-                     run_labelled_sweep)
+from .common import (REPO_ROOT, add_figure_args, add_sweep_args,
+                     boxplot_figure, check, make_parser, run_labelled_sweep,
+                     save_summary_json, trajectory_figure)
 from .scenarios import cartpole_scenario
 
 TRUTH = os.path.join(REPO_ROOT, "RESULTS_NONLINEAR_EXT_CPU_F64_JAX.json")
@@ -60,7 +65,7 @@ def build_nonlinear_plant_step(sc, method: str = "semi_implicit_euler"):
 
 
 def parse_args(argv=None):
-    p = add_sweep_args(make_parser(__doc__))
+    p = add_figure_args(add_sweep_args(make_parser(__doc__)))
     p.add_argument("--extended", action="store_true",
                    help="add the ExtendedTubeTrackingMPC arm "
                         "(results_nonlinear_system_with_extendedMPC)")
@@ -79,6 +84,14 @@ def run(args, setups=None, arms=None) -> dict:
         [a for a in every if arms is None or a[0] in arms], setups=setups,
         plant_step=build_nonlinear_plant_step(cartpole_scenario()),
         noise=False, truth=TRUTH, head={"extended": bool(args.extended)})
+    save_summary_json(args.save_json, out["payload"])
+    if out["figures"]:
+        suffix = "_extended" if args.extended else ""
+        boxplot_figure(out["results"], out["probs"],
+                       f"results_nonlinear{suffix}_boxplot.png",
+                       "Average Tracking Error (nonlinear plant)")
+        trajectory_figure(out["results"], out["probs"], out["sc"],
+                          f"results_nonlinear{suffix}_trajectories.png")
     tube_res = out["results"]["RT-MPC"]
     ok = out["ok"]
     ok &= check("tube arm feasible on the nonlinear plant",

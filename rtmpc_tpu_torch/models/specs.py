@@ -15,9 +15,8 @@ Mayne 2005), the tube-tracking variant (``TubeTrackingMPC.py``, the
 flagship of ``bench.py`` and the robust arm of the Results apps), the
 tracking variant (``TrackingMPC.py``, the non-robust arm) and the extended
 tube-tracking variant (``ExtendedTubeTrackingMPC``, paper Section IV.F: a
-second, packet-received QP whose initial tube is ``Z - W``).  Condensed
-templates are not ported.  Invalid arguments raise ``ValueError`` (the
-reference asserts).
+second, packet-received QP whose initial tube is ``Z - W``).  Invalid
+arguments raise ``ValueError`` (the reference asserts).
 
 ``arrays_from_numpy`` bridges the other way: it builds the port's arrays
 from the JAX package's ``ControllerArrays`` converted to numpy.
@@ -35,7 +34,7 @@ from ..sets.invariant import (determine_mrpi, max_admissible_set,
                               tighten_constraints)
 from ..utils.polytope import Polytope, box, pont_diff
 from ..utils.synthesis import dlqr, dlyap
-from ..ops.assembly import QPTemplate, build_mpc_qp
+from ..ops.assembly import QPTemplate, build_mpc_qp, condense_template
 from ..ops.precision import DEFAULT_DTYPE
 from ..ops.ip import IPSpec, prepare_ip
 from ..ops.ip_riccati import RiccatiIPSpec, prepare_ip_riccati
@@ -100,7 +99,8 @@ class MPCSetup:
                   iters: int = 100, iters2: int = 0, rho2_scale: float = 0.1,
                   alpha: float = 1.6, solver: str = "admm",
                   ip_iters: int = 25, polish: bool = False,
-                  probe_thetas: Optional[np.ndarray] = None):
+                  probe_thetas: Optional[np.ndarray] = None,
+                  condensed: bool = False):
         """Freeze into ``(ControllerArrays, ControllerConfig)``.
 
         ``solver`` is one of ``SOLVERS``.  The ADMM solvers get the JAX
@@ -119,12 +119,27 @@ class MPCSetup:
         packet-received QP's specs, ``admm_pr``/``admm2_pr``, ``ip_pr`` or
         ``ric_pr``, prepared from ``template_pr`` on its own (its rho is
         tuned on its own); any other setup keeps them None.
+
+        ``condensed`` solves the state-eliminated templates
+        (``ops/assembly.py:condense_template``) under "admm", "cuda" and
+        "ip": ``arrays.S_rec`` (``S_rec_pr``) maps a solution's first
+        ``cfg.n_red`` (``n_red_pr``) entries back to the full layout.  The
+        structured interior point needs the stage structure and refuses
+        it (``ValueError``), as the JAX package does.
         """
         if solver not in SOLVERS:
             raise NotImplementedError(
                 f"solver {solver!r} has no counterpart in the port (its "
                 f"solvers: {SOLVERS}; the Pallas kernel's is 'cuda')")
-        tmpl = self.template
+        if condensed and solver == "ip_riccati":
+            raise ValueError("solver 'ip_riccati' needs the uncondensed "
+                             "template (its Riccati sweep is over the stage "
+                             "variables)")
+        tmpl, tmpl_pr = self.template, self.template_pr
+        if condensed:
+            tmpl = condense_template(tmpl)
+            if tmpl_pr is not None:
+                tmpl_pr = condense_template(tmpl_pr)
 
         def prepare(t):
             """``(admm, admm2, ip, ric)`` of one template (None: all
@@ -145,7 +160,7 @@ class MPCSetup:
             return (*(spec if iters2 > 0 else (spec, spec)), None, None)
 
         admm, admm2, ip, ric = prepare(tmpl)
-        admm_pr, admm2_pr, ip_pr, ric_pr = prepare(self.template_pr)
+        admm_pr, admm2_pr, ip_pr, ric_pr = prepare(tmpl_pr)
 
         # tube cross-section H-rep for membership checks, padded; a setup
         # without a tube gets one dummy row
@@ -171,10 +186,18 @@ class MPCSetup:
             K_ss=tensor(K), K_plant=tensor(Kp),
             Hz=tensor(Hz_p), hz=tensor(hz_p), ric=ric,
             admm_pr=admm_pr, admm2_pr=admm2_pr, ric_pr=ric_pr,
-            ip=ip, ip_pr=ip_pr)
-        return arrays, _config(self.nx, self.nu, self.N, tmpl, iters, iters2,
-                               solver, ip_iters, polish=polish,
-                               extended=self.template_pr is not None)
+            ip=ip, ip_pr=ip_pr,
+            S_rec=tensor(tmpl.S) if condensed else None,
+            S_rec_pr=(tensor(tmpl_pr.S) if condensed and tmpl_pr is not None
+                      else None))
+        cfg = _config(self.nx, self.nu, self.N, self.template, iters, iters2,
+                      solver, ip_iters, polish=polish,
+                      extended=self.template_pr is not None)
+        if condensed:
+            cfg = dataclasses.replace(
+                cfg, n_red=tmpl.n,
+                n_red_pr=tmpl_pr.n if tmpl_pr is not None else 0)
+        return arrays, cfg
 
 
 class ControllerArrays(NamedTuple):
@@ -188,6 +211,10 @@ class ControllerArrays(NamedTuple):
     Hz: torch.Tensor           # (mz_p, nx) tube H-rep (padded)
     hz: torch.Tensor           # (mz_p,)
     ric: Optional[RiccatiIPSpec] = None   # structured IP (solver ip_riccati)
+    # a condensed controller's reduced -> full maps, z_full = S_rec v
+    # (``(n, n_red)``; None when the templates are full)
+    S_rec: Optional[torch.Tensor] = None
+    S_rec_pr: Optional[torch.Tensor] = None
     ip: Optional[IPSpec] = None           # dense IP (solver ip)
     # the packet-received QP of an extended setup (None otherwise)
     ip_pr: Optional[IPSpec] = None
@@ -216,6 +243,10 @@ class ControllerConfig:
     ip_iters: int = 25         # interior-point iterations (ip, ip_riccati)
     extended: bool = False     # two QPs picked by the previous step's gamma
     polish: bool = False       # polish the last ADMM phase's primal
+    # variables of the condensed QP (the packet-received one's); 0: the
+    # QPs are full (``n`` is the full layout's either way)
+    n_red: int = 0
+    n_red_pr: int = 0
 
 
 def _config(nx, nu, N, tmpl, iters, iters2, solver, ip_iters, polish=False,
@@ -282,6 +313,10 @@ def arrays_from_numpy(np_arrays, dtype: torch.dtype = torch.float64,
     def admm(f):
         return spec_from_numpy(getattr(np_arrays, f), dtype, device)
 
+    def S_or_none(a, dtype, device):
+        """The JAX package gives a full controller empty ``(0, 0)`` maps."""
+        return _np_tensor(a, dtype, device) if np.size(a) else None
+
     def spec_or_none(f, convert):
         spec = getattr(np_arrays, f)
         return None if spec is None else convert(spec, dtype, device)
@@ -295,7 +330,9 @@ def arrays_from_numpy(np_arrays, dtype: torch.dtype = torch.float64,
         admm_pr=admm("admm_pr"), admm2_pr=admm("admm2_pr"),
         ric_pr=spec_or_none("ric_pr", ric_spec_from_numpy),
         ip=spec_or_none("ip", ip_spec_from_numpy),
-        ip_pr=spec_or_none("ip_pr", ip_spec_from_numpy))
+        ip_pr=spec_or_none("ip_pr", ip_spec_from_numpy),
+        S_rec=spec_or_none("S_rec", S_or_none),
+        S_rec_pr=spec_or_none("S_rec_pr", S_or_none))
 
 
 # ---------------------------------------------------------------------------

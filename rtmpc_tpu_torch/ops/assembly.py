@@ -11,7 +11,10 @@ with ``q = q0 + Mq theta``, ``l = l0 + Ml theta``, ``u = u0 + Mu theta``,
 ``theta = [x_init; ref]`` and the variable layout
 ``z = [x_0 .. x_N | u_0 .. u_{N-1} | xbar | ubar]``.
 
-``condense_template`` (state elimination) is not ported yet.
+``condense_template`` eliminates the states x_1..x_N: an equivalent
+template over ``v = [x_0 | u_0..u_{N-1} | xbar | ubar]`` with
+``z = S v``.  ``QPTemplate.solve_dense`` solves one instance of a full
+template with the float64 oracle of ``utils/qp_ref.py``.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["QPTemplate", "build_mpc_qp"]
+__all__ = ["QPTemplate", "build_mpc_qp", "condense_template"]
 
 
 @dataclasses.dataclass
@@ -45,8 +48,8 @@ class QPTemplate:
     # row counts per group, in build_mpc_qp's emission order
     # [dynamics | init | ss | state | input | terminal]
     row_meta: Optional[dict] = None
-    # reduced -> full map of a condensed template; None: the port builds
-    # only full-layout (uncondensed) templates
+    # reduced -> full map of a condensed template (z_full = S v); None for
+    # a full-layout template
     S: Optional[np.ndarray] = None
 
     @property
@@ -78,6 +81,41 @@ class QPTemplate:
             return None
         off = self.nx * (self.N + 1) + self.nu * self.N + self.nx
         return slice(off, off + self.nu)
+
+    def solve_dense(self, x_init: np.ndarray, ref: Optional[np.ndarray] = None,
+                    tol: float = 1e-9):
+        """Solve one instance with the float64 interior-point oracle
+        (``utils/qp_ref.py``); returns its ``QPSolution`` and the parameter
+        vector used.  For tests and setup-time checks; a condensed template
+        is refused (solve the full one)."""
+        if self.S is not None:
+            raise ValueError("solve_dense targets the full-layout template; "
+                             "solve the uncondensed template instead")
+        from ..utils.qp_ref import solve_qp_dense
+        theta = np.zeros(self.ntheta)
+        theta[:self.nx] = np.asarray(x_init).reshape(-1)
+        if ref is not None:
+            theta[self.nx:self.nx + self.nx] = np.asarray(ref).reshape(-1)
+        q = self.q0 + self.Mq @ theta
+        l = self.l0 + self.Ml @ theta
+        u = self.u0 + self.Mu @ theta
+        eq = self.is_eq
+        A_eq, b_eq = self.A[eq], u[eq]
+        # two-sided inequality rows -> stacked one-sided
+        ineq = ~eq
+        G_list, h_list = [], []
+        if np.any(ineq):
+            Ai, li, ui = self.A[ineq], l[ineq], u[ineq]
+            fin_u = np.isfinite(ui)
+            fin_l = np.isfinite(li)
+            G_list.append(Ai[fin_u])
+            h_list.append(ui[fin_u])
+            G_list.append(-Ai[fin_l])
+            h_list.append(-li[fin_l])
+        G = np.vstack(G_list) if G_list else None
+        h = np.concatenate(h_list) if G_list else None
+        sol = solve_qp_dense(self.P, q, A=A_eq, b=b_eq, G=G, h=h, tol=tol)
+        return sol, theta
 
 
 def build_mpc_qp(
@@ -282,4 +320,70 @@ def build_mpc_qp(
         is_eq=np.concatenate(rows_eq),
         nx=nx, nu=nu, N=N, tracking=tracking, ntheta=ntheta,
         row_meta=meta,
+    )
+
+
+def condense_template(t: QPTemplate) -> QPTemplate:
+    """Eliminate the states x_1..x_N through the dynamics equalities
+    (``rtmpc_tpu/ops/assembly.py:condense_template``).
+
+    Returns an equivalent template over the reduced variables ``v = [x_0 |
+    u_0..u_{N-1} | xbar | ubar]`` with ``z_full = S @ v`` (``S`` stored on
+    the returned template).  x_0 stays a variable, so both initial-state
+    modes keep their parametrization (the ``x_0 = x_init`` row or the
+    initial-tube rows map through S unchanged).  The dynamics rows vanish
+    and the cost becomes positive definite in (x_0, u); the full template
+    stays the oracle that ``S @ v*`` must match.  A template whose leading
+    rows are not the parameter-free dynamics equalities raises
+    ``ValueError``."""
+    nx, nu, N = t.nx, t.nu, t.N
+    ndyn = N * nx
+    # build_mpc_qp emits the dynamics equalities first: verify, not trust
+    if not (t.is_eq[:ndyn].all() and not t.Ml[:ndyn].any()
+            and not t.Mu[:ndyn].any() and not t.l0[:ndyn].any()
+            and not t.u0[:ndyn].any()):
+        raise ValueError("condense_template: the first N*nx rows must be "
+                         "the dynamics equalities x_{k+1} - A x_k - B u_k "
+                         "= 0")
+    n_red = nx + N * nu + ((nx + nu) if t.tracking else 0)
+
+    # z_full = S v:  x_k = A^k x_0 + sum_{j<k} A^(k-1-j) B u_j, with A and
+    # B read from the first dynamics row block (x_1 - A x_0 - B u_0 = 0)
+    A = -t.A[:nx, t.x_slice(0)]
+    B = -t.A[:nx, t.u_slice(0)]
+    S = np.zeros((t.n, n_red))
+    u_off_red = nx
+    xb_off_red = nx + N * nu
+    Apow = [np.eye(nx)]
+    for _ in range(N):
+        Apow.append(A @ Apow[-1])
+    for k in range(N + 1):
+        S[t.x_slice(k), :nx] = Apow[k]
+        for j in range(k):
+            S[t.x_slice(k),
+              u_off_red + j * nu:u_off_red + (j + 1) * nu] = \
+                Apow[k - 1 - j] @ B
+    for j in range(N):
+        S[t.u_slice(j), u_off_red + j * nu:u_off_red + (j + 1) * nu] = \
+            np.eye(nu)
+    if t.tracking:
+        S[t.xbar_slice, xb_off_red:xb_off_red + nx] = np.eye(nx)
+        S[t.ubar_slice, xb_off_red + nx:xb_off_red + nx + nu] = np.eye(nu)
+    dyn_left = np.abs(t.A[:ndyn] @ S).max()
+    if dyn_left >= 1e-9:
+        raise ValueError(f"condense_template: the dynamics rows do not "
+                         f"vanish under S (max |A_dyn S| = {dyn_left:.3g})")
+
+    keep = np.ones(t.m, bool)
+    keep[:ndyn] = False
+    return QPTemplate(
+        P=S.T @ t.P @ S,
+        q0=S.T @ t.q0,
+        Mq=S.T @ t.Mq,
+        A=t.A[keep] @ S,
+        l0=t.l0[keep], Ml=t.Ml[keep],
+        u0=t.u0[keep], Mu=t.Mu[keep],
+        is_eq=t.is_eq[keep],
+        nx=nx, nu=nu, N=N, tracking=t.tracking, ntheta=t.ntheta,
+        S=S,
     )

@@ -13,8 +13,12 @@ batch as its leading axis (``vmap`` in the JAX package), the N-stage
 ``(B, ., .)`` products, and the ``lax.while_loop`` becomes a Python loop
 with a per-lane ``go`` mask.  Every update goes through ``torch.where``,
 so a lane that has stopped keeps its state and its best iterate exactly as
-a single-instance run leaves them; the loop ends when no lane is active or
-after ``iters`` iterations (one host sync an iteration).
+a single-instance run leaves them.  Eagerly the loop ends when no lane is
+active (one host read of the mask an iteration) or after ``iters``
+iterations.  While a CUDA graph is being captured it runs the whole
+``iters`` budget with no read of the device, as the JAX package's
+``while_loop`` does on the device: the extra iterations are selects that
+keep every frozen lane, so both give the same iterate bit for bit.
 
 The four inequality groups (stage state rows, stage input rows, the
 initial tube, the terminal set) are kept as one flat ``(B, m_i)`` tensor in
@@ -470,16 +474,24 @@ def _where(mask, new, old):
 
 
 def ip_riccati_solve(spec: RiccatiIPSpec, theta: torch.Tensor, N: int,
-                     iters: int = 25) -> IPSolution:
+                     iters: int = 25,
+                     early_exit: Optional[bool] = None) -> IPSolution:
     """Mehrotra predictor-corrector with the Riccati/arrowhead KKT solve,
     cold start, for a batch ``theta (B, ntheta)``.
 
     Returns the primal in the template layout ``[x_0..x_N | u_0..u_{N-1}
     | xbar ubar]`` and the residuals in the scaled metric, like the JAX
     package's ``ip_riccati_solve`` under ``vmap``.
+    ``early_exit``: end the loop once no lane is active, which reads the
+    device every iteration; None (the default) means yes unless a CUDA
+    graph is being captured, where that read cannot be (the loop then runs
+    all ``iters``, to the same iterate).
     ``ip_riccati_solve.iterations`` and ``.calls`` count the loop's
     iterations and the calls."""
     dt, dev = spec.A.dtype, spec.A.device
+    if early_exit is None:
+        early_exit = not (dev.type == "cuda"
+                          and torch.cuda.is_current_stream_capturing())
     theta = theta.to(dt)
     Bsz = theta.shape[0]
     nx, nu = spec.B.shape
@@ -707,7 +719,7 @@ def ip_riccati_solve(spec: RiccatiIPSpec, theta: torch.Tensor, N: int,
     best_score = torch.full((Bsz,), torch.finfo(dt).max, **kw)
     go = torch.ones(Bsz, dtype=torch.bool, device=dev)
     it = 0
-    while it < iters and bool(go.any()):
+    while it < iters and (not early_exit or bool(go.any())):
         x, u, w, y, mu_ss, lam, s = cur
         rdx, rdu, rdxN, rdw, re_d, re_0, re_ss, ri = residuals(*cur)
         mu = (lam * s).sum(1) / m_total

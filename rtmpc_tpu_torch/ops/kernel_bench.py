@@ -73,6 +73,22 @@ F64_RATIO = 3.0
 Y_ATOL_SMALL_B = 4e-3
 F64_SMALL_B = (4e-5, 3.6e-3)
 CP_F64_SMALL_B = (6e-4, 1.3e-3)
+# The condensed QPs (``ops/assembly.py:condense_template``: the states
+# eliminated, so the cost carries A^k and the duals are larger).  z keeps
+# the bars above; y gets 2-3x what an NVIDIA H100 80GB HBM3 read against
+# plain, where plain float32 is itself as far from float64 (flagship 16 +
+# 96 at B=16384: kernel 1.23e-2, plain 3.4e-2 from float64; cartpole
+# tracking 32 + 760 at B=200: kernel 4.53, plain 4.44 from float64); at
+# the small batches absolute float64 bars of 2x the kernel's readings
+# there (flagship z 1.9e-5, y 1.36e-2; cartpole z 7.0e-5, y 0.173).
+COND_Y_ATOL = 4e-2
+# r_prim = |A x - z| of the condensed flagship: A's rows carry A^k B, so
+# the kernel's x, 1.35e-4 from plain's at B=4099 on that card, moves
+# r_prim by as much (1.35e-4 read there); 3x that reading
+COND_RPRIM_ATOL = 4e-4
+COND_F64_SMALL_B = (4e-5, 3e-2)
+COND_CP_Y_ATOL = 10.0
+COND_CP_F64_SMALL_B = (1.5e-4, 0.35)
 
 
 def card() -> str:
@@ -184,8 +200,9 @@ def compare_with_plain(spec1, spec2, th1, th2, iters, bars=(Z_ATOL, Y_ATOL),
     as on the main paths, or the plain version's).
 
     Raises unless every kernel output is finite, max |dz| and max |dy|
-    against the plain version are within ``bars``, and the residuals agree
-    (5% and ``bars[0]`` for r_prim, ``bars[1] / 2`` for r_dual).  With
+    against the plain version are within ``bars`` ``(z, y)``, and the
+    residuals agree (5% and ``bars[0]``, or ``bars[2]`` where given, for
+    r_prim; ``bars[1] / 2`` for r_dual).  With
     ``specs64`` (the two specs in float64) both are also held against the
     plain version in float64: the kernel's error at most ``F64_RATIO``
     times plain float32's own, or, where ``f64_bars`` gives absolute (z, y)
@@ -206,7 +223,8 @@ def compare_with_plain(spec1, spec2, th1, th2, iters, bars=(Z_ATOL, Y_ATOL),
             type(start)(*(t.double() for t in start)), it2)
     if th1.is_cuda:
         torch.cuda.synchronize()
-    B, (z_bar, y_bar) = th1.shape[0], bars
+    B, (z_bar, y_bar, *rp) = th1.shape[0], bars
+    rp_bar = rp[0] if rp else z_bar
     errs = {}
 
     def require(ok, *what):
@@ -236,7 +254,7 @@ def compare_with_plain(spec1, spec2, th1, th2, iters, bars=(Z_ATOL, Y_ATOL),
             else:
                 bar64 = f64_bars[key.endswith("_y")]
             require(errs["f64_" + key] <= bar64, "f64_" + key, bar64)
-        for name, atol in (("r_prim", z_bar), ("r_dual", y_bar / 2)):
+        for name, atol in (("r_prim", rp_bar), ("r_dual", y_bar / 2)):
             got, want = getattr(k, name), getattr(p, name)
             require(bool(((got - want).abs() <= atol + 5e-2 * want.abs())
                          .all()), phase, name)

@@ -389,7 +389,9 @@ def polish_solution(spec: ADMMSpec, q, l, u, x, y, z, r_prim, r_dual):
             torch.cat([Ad, torch.diag_embed(-(sig_y * d + (1.0 - d)))],
                       dim=2)], dim=1)
         rhs = torch.cat([-q, d * b_k], dim=1)[:, :, None]
-        LU, piv = torch.linalg.lu_factor(K)
+        # the _ex form checks nothing on the host, so a CUDA graph captures
+        # it; a singular K gives non-finite values, which ``better`` rejects
+        LU, piv, _ = torch.linalg.lu_factor_ex(K)
         s = torch.linalg.lu_solve(LU, piv, rhs)
         for _ in range(POLISH_REFINE):
             s = s + torch.linalg.lu_solve(LU, piv, rhs - K @ s)

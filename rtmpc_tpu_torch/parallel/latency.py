@@ -54,17 +54,24 @@ def _window_inputs(refs, w, theta, gamma, device, dtype):
             torch.as_tensor(gamma, dtype=torch.int32).to(device))
 
 
-def measure_step_latencies(arrays, cfg, refs, w, theta, gamma) -> np.ndarray:
-    """Wall-clock latencies [s] of a T-tick closed loop from x0 = 0, one
-    dispatch a tick.  ``refs``/``w`` ``(T, nx)``, ``theta``/``gamma``
-    ``(T,)``.  The carry (estimator, actuator, warm starts) stays on the
-    device between ticks, so the trajectory is the windowed one's; only the
-    granularity differs.  One untimed tick (the first replay of the
-    one-tick graph) comes first, and the carry is reset after it."""
+def measure_step_latencies(arrays, cfg, refs, w, theta, gamma, x0=None,
+                           actuator_mode: str = "consistent") -> np.ndarray:
+    """Wall-clock latencies [s] of a T-tick closed loop from ``x0`` (zero
+    if None), one dispatch a tick, under ``actuator_mode``.  ``refs``/``w``
+    ``(T, nx)``, ``theta``/``gamma`` ``(T,)``.  The carry (estimator,
+    actuator, warm starts) stays on the device between ticks, so the
+    trajectory is the windowed one's; only the granularity differs (the
+    estimator's state is O(1), so no buffer has to span the experiment).
+    Any solver: on the card each tick is one replay of the one-tick graph,
+    the interior points' loops included (they run their whole iteration
+    budget there, ``ops/ip_riccati.py``).  One untimed tick (the first
+    replay) comes first, and the carry is reset after it."""
     dev, dt = arrays.A.device, arrays.A.dtype
     refs, w, theta, gamma = _window_inputs(refs, w, theta, gamma, dev, dt)
     T = refs.shape[0]
-    session = Session(arrays, cfg, 1, torch.zeros(cfg.nx))
+    session = Session(arrays, cfg, 1,
+                      torch.zeros(cfg.nx) if x0 is None else x0,
+                      actuator_mode=actuator_mode)
     session.advance(refs[:1], w[:1], theta[:1], gamma[:1])
     _sync(dev)
     session.reset()

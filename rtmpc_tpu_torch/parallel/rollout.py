@@ -157,12 +157,15 @@ def _solve(arrays: ControllerArrays, cfg: ControllerConfig,
     two-phase schedule as a state hand-off: phase 1 at ``admm``, phase 2
     at ``admm2`` (rho scaled) from phase 1's iterate; residuals are phase
     2's, and with ``cfg.polish`` the primal and residuals are polished on
-    the last phase's spec (``rtmpc_tpu/parallel/rollout.py:407-416``)."""
+    the last phase's spec (``rtmpc_tpu/parallel/rollout.py:407-416``).  A
+    condensed controller's primal comes back in the full layout
+    (``_recover``)."""
     if cfg.solver == "ip":
         sol = ip_solve(arrays.ip_pr if pr else arrays.ip, theta_qp,
                        iters=cfg.ip_iters)
-        return ADMMSolution(z_primal=sol.z_primal, state=warm,
-                            r_prim=sol.r_prim, r_dual=sol.r_dual)
+        return _recover(arrays, cfg, ADMMSolution(
+            z_primal=sol.z_primal, state=warm, r_prim=sol.r_prim,
+            r_dual=sol.r_dual), pr)
     if cfg.solver == "ip_riccati":
         if ric is None:
             ric = arrays.ric_pr if pr else arrays.ric
@@ -176,7 +179,21 @@ def _solve(arrays: ControllerArrays, cfg: ControllerConfig,
     if cfg.iters2 > 0:
         sol = solve(spec2, theta_qp, sol.state, iters=cfg.iters2)
         spec = spec2
-    return apply_polish(spec, theta_qp, sol) if cfg.polish else sol
+    if cfg.polish:
+        sol = apply_polish(spec, theta_qp, sol)
+    return _recover(arrays, cfg, sol, pr)
+
+
+def _recover(arrays: ControllerArrays, cfg: ControllerConfig,
+             sol: ADMMSolution, pr: bool) -> ADMMSolution:
+    """A condensed controller's primal mapped back to the full layout,
+    ``z_full = S_rec v`` (``rtmpc_tpu/parallel/rollout.py:119-128``), so
+    every offset downstream holds; a full controller's as it is."""
+    if not cfg.n_red:
+        return sol
+    S, n_red = ((arrays.S_rec_pr, cfg.n_red_pr) if pr
+                else (arrays.S_rec, cfg.n_red))
+    return sol._replace(z_primal=sol.z_primal[:, :n_red] @ S.T)
 
 
 def _select(keep, a, b):

@@ -14,7 +14,10 @@ its effect on the carry is undone), ``window`` ticks of the batched step
 (``parallel/rollout.py``) are captured once, reading the static input
 buffers and the static carry and ending by copying the new carry into it;
 the outputs are the graph's own static ``(1, window, .)`` tensors.  Each
-call then replays the graph: no Python and no launch overhead a tick.  A
+call then replays the graph: no Python and no launch overhead a tick.
+Every solver of the engine captures, the interior points too: the
+structured one runs its whole iteration budget under capture, where its
+eager early exit would read the device (``ops/ip_riccati.py``).  A
 capture that fails raises; there is no eager fallback on the card.  On a
 CPU device the same function runs the ticks eagerly, the only mode the CPU
 has.
@@ -26,6 +29,7 @@ the number the device ran: launches captured a window times replays.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 import torch
@@ -69,6 +73,8 @@ class Session:
         self.outs: Optional[StepOutputs] = None
         self.captured_launches = 0
         self.replays = 0
+        # seconds the capture and the instantiation of the graph took
+        self.capture_s = self.instantiate_s = None
         if dev.type == "cuda":
             self._capture()
 
@@ -87,8 +93,12 @@ class Session:
         self.reset()
         graph = torch.cuda.CUDAGraph()
         before = admm_solve_cuda.launches
+        t0 = time.perf_counter()
         with torch.cuda.graph(graph):
             self.outs = self._body()
+            t1 = time.perf_counter()
+        # leaving the context ends the capture and instantiates the graph
+        self.capture_s, self.instantiate_s = t1 - t0, time.perf_counter() - t1
         self.captured_launches = admm_solve_cuda.launches - before
         self.graph = graph
 

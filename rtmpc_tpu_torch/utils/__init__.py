@@ -14,6 +14,7 @@ from .polytope import (
     convex_hull,
     extreme,
     reduce_poly,
+    intersect,
     contains,
     poly_subset,
     poly_equal,
@@ -23,6 +24,6 @@ from .synthesis import dlqr, dlyap, c2d
 __all__ = [
     "Polytope", "box", "support", "support_lp_batch", "support_many",
     "pont_diff", "mink_sum", "scale", "convex_hull", "extreme",
-    "reduce_poly", "contains", "poly_subset", "poly_equal", "dlqr", "dlyap",
-    "c2d",
+    "reduce_poly", "intersect", "contains", "poly_subset", "poly_equal",
+    "dlqr", "dlyap", "c2d",
 ]

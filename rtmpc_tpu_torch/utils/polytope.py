@@ -2,7 +2,8 @@
 
 The port's own copy of the setup-time set calculus of
 ``rtmpc_tpu/utils/polytope.py``, restricted to what the controller setups
-of ``models/specs.py`` reach: it runs once per scenario on the host and
+of ``models/specs.py`` and the set demos of ``apps/set_operations.py``
+reach: it runs once per scenario on the host and
 produces static-shape H-representations that are later padded and moved
 to the device.  The algorithms follow the Kolmanovsky-Gilbert
 support-function calculus, statement for statement as in the JAX package,
@@ -417,6 +418,12 @@ def reduce_poly(poly: Polytope, tol: float = 1e-9,
         if np.isfinite(sup) and sup <= b[i] + max(tol, slack_tol):
             keep[i] = False
     return Polytope(A[keep], b[keep])
+
+
+def intersect(poly1: Polytope, poly2: Polytope) -> Polytope:
+    """H-rep intersection (row stacking; no reduction)."""
+    return Polytope(np.vstack([poly1.A, poly2.A]),
+                    np.concatenate([poly1.b, poly2.b]))
 
 
 def contains(poly: Polytope, x, tol: float = 1e-7) -> bool:

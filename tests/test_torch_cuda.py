@@ -424,3 +424,90 @@ def test_session_captures_the_dense_ip():
     torch.cuda.synchronize()
     for name, a, b in zip(want._fields, got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-12, msg=name)
+
+
+# ---------------------------------------------------------------------------
+# Fig. 3d: the interior points captured one tick a graph; K1 on the
+# condensed QPs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("solver", ["ip_riccati", "ip", "admm"])
+def test_one_tick_graph_equals_eager_float64_solvers(solver):
+    """A one-tick session of the flagship in float64 under each interior
+    point (the structured one runs its whole iteration budget under
+    capture, with no read of the device) and under the polished ADMM (the
+    polish's LU checks nothing on the host), replayed 10 ticks, equals the
+    same 10 ticks run eagerly (the structured IP with its early exit) to
+    1e-9."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rtmpc_tpu_torch.parallel.session import Session
+    kw = (dict(ip_iters=30) if solver.startswith("ip")
+          else dict(KW, polish=True))
+    arrays, cfg = flagship_setup().to_device(torch.float64, "cuda",
+                                             solver=solver, **kw)
+    K = 10
+    session = Session(arrays, cfg, 1, [0.5, -0.2])
+    assert session.graph is not None
+    assert session.capture_s > 0 and session.instantiate_s > 0
+    refs, w, theta, gamma = (a.double() if a.is_floating_point() else a
+                             for a in _session_inputs(K, 5))
+    ticks = []
+    for t in range(K):
+        o = session.advance(refs[t:t + 1], w[t:t + 1], theta[t:t + 1],
+                            gamma[t:t + 1])
+        ticks.append(tuple(a.clone() for a in o))
+    got = [torch.cat(f, dim=1) for f in zip(*ticks)]
+    _, want = make_batched_rollout(arrays, cfg, K)(
+        torch.tensor([[0.5, -0.2]], dtype=torch.float64, device="cuda"),
+        *(a[None].cuda() for a in (refs, w, theta, gamma)))
+    torch.cuda.synchronize()
+    for name, a, b in zip(want._fields, got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-9, msg=name)
+
+
+@pytest.mark.parametrize("B", [1, "rows+1", 4099])
+def test_condensed_flagship_matches_plain_version(B):
+    """K1 on the condensed flagship QP (16 + 96 columns, the smem path)
+    against its plain version, at the bars of ``kernel_bench.py``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rtmpc_tpu_torch.ops.kernel_bench import (COND_F64_SMALL_B,
+                                                  COND_RPRIM_ATOL,
+                                                  COND_Y_ATOL)
+    a32, _ = flagship_setup().to_device(torch.float32, "cuda", solver="cuda",
+                                        condensed=True, **KW)
+    a64, _ = flagship_setup().to_device(torch.float64, "cuda", solver="cuda",
+                                        condensed=True, **KW)
+    n_p, m_p = a32.admm.Kinv.shape[0], a32.admm.As.shape[0]
+    assert (n_p + m_p, kernel_path(n_p + m_p)) == (112, "smem")
+    if isinstance(B, str):
+        B = kernel_rows(n_p, m_p) + 1
+    th = _theta(B, 7)
+    compare_with_plain(a32.admm, a32.admm2, th, th, (60, 60),
+                       (Z_ATOL, COND_Y_ATOL, COND_RPRIM_ATOL),
+                       specs64=(a64.admm, a64.admm2),
+                       f64_bars=COND_F64_SMALL_B if B < 200 else None)
+
+
+@pytest.mark.parametrize("B", [1, 37])
+@pytest.mark.parametrize("arm", ["tube", "track"])
+def test_condensed_cartpole_matches_plain_version(cartpole, arm, B):
+    """K1 on the condensed cartpole QPs (32 + 712 and 32 + 760: the cluster
+    path, 16 rows a cluster) against its plain version."""
+    from rtmpc_tpu_torch.apps.common import ADMM_SCHEDULE
+    from rtmpc_tpu_torch.ops.kernel_bench import (COND_CP_F64_SMALL_B,
+                                                  COND_CP_Y_ATOL)
+    specs = {}
+    for dt in (torch.float32, torch.float64):
+        a, _ = cartpole[1][arm].to_device(dt, "cuda", solver="cuda",
+                                          condensed=True, **ADMM_SCHEDULE)
+        specs[dt] = (a.admm, a.admm2)
+    n_p, m_p = specs[torch.float32][0].Kinv.shape[0], \
+        specs[torch.float32][0].As.shape[0]
+    assert kernel_path(n_p + m_p) == "l2" and kernel_rows(n_p, m_p) == 16
+    th = _cartpole_theta(B, 3)
+    compare_with_plain(*specs[torch.float32], th, th, (200, 200),
+                       (CP_Z_ATOL, COND_CP_Y_ATOL),
+                       specs64=specs[torch.float64],
+                       f64_bars=COND_CP_F64_SMALL_B if B == 1 else None)

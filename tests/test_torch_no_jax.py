@@ -1,10 +1,12 @@
 """The port runs without JAX and without the JAX package ``rtmpc_tpu``, and
 its kernel build fails loudly without nvcc.
 
-The run-time checks run in a fresh interpreter (a subprocess), so nothing
-this test process imported (JAX included, via ``conftest.py``) leaks in;
-there every import of ``jax`` or of ``rtmpc_tpu`` raises.  A third check
-reads the port's sources for such imports.
+The run-time checks (every app and module of the port, down to the
+condensed QP and Fig. 3d's timer) run in a fresh interpreter (a
+subprocess), so nothing this test process imported (JAX included, via
+``conftest.py``) leaks in; there every import of ``jax`` or of
+``rtmpc_tpu`` raises.  A third check reads the port's sources for such
+imports.
 """
 
 import ast
@@ -110,6 +112,25 @@ _ROLLOUT = _BLOCK_JAX + textwrap.dedent("""
     ses = Session(arrays, cfg, 3, [0.0, 0.0])
     o = ses.advance(refs[0], w[0].double(), theta[0], gamma[0])
     assert o.x.shape == (1, 3, 2) and bool(ses.carry.feasible.all())
+    # the rest of the figures and apps, Fig. 3d's one-tick timer on the
+    # structured interior point, and the condensed QP with its oracle
+    from rtmpc_tpu_torch.apps import (create_animations,  # noqa: F401
+                                      estimate_w, set_operations)
+    from rtmpc_tpu_torch.parallel.latency import measure_step_latencies
+    assert estimate_w.main(["--device", "cpu", "--quick"]) == 0
+    assert set_operations.main(["--demo", "ops", "--no-figures"]) == 0
+    arrays, cfg = setup.to_device(torch.float64, "cpu", solver="ip_riccati")
+    times = measure_step_latencies(arrays, cfg, refs[0], w[0], theta[0],
+                                   gamma[0], x0=[0.5, 0.0],
+                                   actuator_mode="smart")
+    assert times.shape == (3,)
+    arrays, cfg = setup.to_device(torch.float64, "cpu", solver="ip",
+                                  condensed=True)
+    carry, outs = make_batched_rollout(arrays, cfg, 3)(
+        x0, refs, w, theta, gamma)
+    assert cfg.n_red == 15 and bool(carry.feasible.all())
+    sol, _ = setup.template.solve_dense([0.5, 0.0], [4.0, 0.0])
+    assert sol.status == "optimal"
     for blocked in ("jax", "rtmpc_tpu", "rtmpc_tpu.utils"):
         try:
             __import__(blocked)

@@ -13,7 +13,9 @@
   ``sample_x_nom`` within 1e-8 (1e-7 under the interior point: measured
   3.0e-8, see ``TRAJ_TOL``), ``infeasible_counts`` and ``feasible`` equal.
 * Checkpoint and resume equal a single-shot run.
-* The app's ``--quick`` JSON has the JAX app's row keys.
+* The app's ``--quick`` JSON has the JAX app's row keys and its
+  ``solve_time_stats`` the keys of the JAX package's ``latency_report``,
+  and the app writes its three figures.
 
 Write the draws file anew with ``python tests/test_torch_results.py``.
 """
@@ -73,6 +75,8 @@ from rtmpc_tpu.apps.scenarios import cartpole_scenario as jax_scenario  # noqa: 
 from rtmpc_tpu.models.specs import setup_tracking as jax_setup_tracking  # noqa: E402
 from rtmpc_tpu.models.specs import (  # noqa: E402
     setup_tube_tracking as jax_setup_tube_tracking)
+from rtmpc_tpu.parallel.latency import (  # noqa: E402
+    latency_report as jax_latency_report)
 from rtmpc_tpu.parallel.mc import run_mc_sweep as jax_run_mc_sweep  # noqa: E402
 from rtmpc_tpu.protocol.network import draw_disturbances  # noqa: E402
 
@@ -271,12 +275,16 @@ def test_checkpoint_resume_equals_single_shot(tmp_path):
     assert not (fresh.tracking_error == -1.0).any()
 
 
-def test_app_quick_json_has_the_jax_row_keys(cartpole_setups, tmp_path):
+def test_app_quick_json_has_the_jax_row_keys(cartpole_setups, tmp_path,
+                                             monkeypatch):
     """``--quick`` (T=60, 4 probabilities x 4 runs) on the CPU with the
     kernel's plain version, on the module's controllers (the app's own
     setup is the one ``cartpole_setups`` makes); the rows carry the keys
-    of the JAX app's rows (read from its committed float64 run)."""
+    of the JAX app's rows (read from its committed float64 run), Fig. 3d's
+    statistics over the T ticks those of the JAX package's report, and the
+    figures are written."""
     _, setups = cartpole_setups
+    monkeypatch.setenv("RTMPC_RESULTS_DIR", str(tmp_path / "figures"))
     out = tmp_path / "quick.json"
     args = results_linear.parse_args(["--device", "cpu", "--quick",
                                       "--solver", "cuda", "--save-json",
@@ -291,3 +299,9 @@ def test_app_quick_json_has_the_jax_row_keys(cartpole_setups, tmp_path):
         assert k in got, k
     assert (got["n_mc"], got["T"], got["dtype"]) == (4, 60, "float32")
     assert [r["p"] for r in got["rows"]] == [0.0, 0.3, 0.6, 0.9]
+    stats = got["solve_time_stats"]
+    assert set(stats) == set(jax_latency_report(np.ones(3) * 1e-3, "x"))
+    assert stats["n_solves"] == 60 and sum(stats["hist_counts"]) == 60
+    for name in ("solvetime_hist", "boxplot", "trajectories"):
+        png = tmp_path / "figures" / f"results_linear_{name}.png"
+        assert png.stat().st_size > 5000, name

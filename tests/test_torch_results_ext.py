@@ -16,10 +16,13 @@ package.
 * The checkpoint's fingerprint tells two plants apart.
 * Both apps under ``--quick --device cpu`` (the quick size cut further for
   the test): the JSON's rows carry the keys of the JAX apps' rows (read
-  from their committed float64 runs), and ``compare_rows`` holds rows to a
-  reference file.
+  from their committed float64 runs), the extended app's
+  ``solve_time_stats`` has RT-MPC's and Ext-RT-MPC's with the keys of the
+  JAX package's ``latency_report`` (the nonlinear app, like the JAX one,
+  has none), the figures are written, and ``compare_rows`` holds rows to
+  a reference file.
 
-Write the draws file anew with ``python tests/test_torch_results_ext.py``.
+Write the draws files anew with ``python tests/test_torch_results_ext.py``.
 """
 
 import json
@@ -59,9 +62,11 @@ if __name__ == "__main__":
     sys.path.insert(0, REPO)
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    theta, gamma, u = jax_draws()
-    np.savez_compressed(DRAWS, theta=theta, gamma=gamma, u=u)
-    print(f"wrote {DRAWS}")
+    # the apps' full size, and n_mc 4 (RESULTS_LINEAR_EXT_ADMM_CPU_F64_JAX's)
+    for n_mc, path in ((N_MC, DRAWS), (4, DRAWS.replace(".npz", "_nmc4.npz"))):
+        theta, gamma, u = jax_draws(n_mc=n_mc)
+        np.savez_compressed(path, theta=theta, gamma=gamma, u=u)
+        print(f"wrote {path}")
 
 
 # ---------------------------------------------------------------------------
@@ -75,6 +80,8 @@ from rtmpc_tpu.models.specs import (  # noqa: E402
     setup_extended_tube_tracking as jax_setup_extended)
 from rtmpc_tpu.models.specs import (  # noqa: E402
     setup_tube_tracking as jax_setup_tube_tracking)
+from rtmpc_tpu.parallel.latency import (  # noqa: E402
+    latency_report as jax_latency_report)
 from rtmpc_tpu.parallel.mc import run_mc_sweep as jax_run_mc_sweep  # noqa: E402
 
 from rtmpc_tpu_torch.apps import (common, results_linear_extended,  # noqa: E402
@@ -218,6 +225,7 @@ def test_app_quick_json_has_the_jax_row_keys(port_setups, tmp_path,
     probabilities x 2 runs x T=6 in place of the quick size's 3 x 3 x 60."""
     _, setups = port_setups
     monkeypatch.setattr(common, "EXT_QUICK", (6, 2, [0.0, 0.8]))
+    monkeypatch.setenv("RTMPC_RESULTS_DIR", str(tmp_path / "figures"))
     out = tmp_path / "quick.json"
     argv = ["--device", "cpu", "--quick", "--save-json", str(out)]
     if app == "linear_extended":
@@ -237,11 +245,25 @@ def test_app_quick_json_has_the_jax_row_keys(port_setups, tmp_path,
     assert [set(r) for r in got["rows"]] == [want_keys] * 2
     for k in ("app", "solver", "dtype", "backend", "n_mc", "T", "seed"):
         assert got[k] == {"n_mc": 2, "T": 6, "backend": "cpu"}.get(k, ref[k])
-    assert "solve_time_stats" not in got
+    if app == "linear_extended":
+        keys = set(jax_latency_report(np.ones(3) * 1e-3, "x"))
+        stats = got["solve_time_stats"]
+        assert set(stats) == {"RT-MPC", "Ext-RT-MPC"}
+        assert all(set(st) == keys and st["n_solves"] == 6
+                   for st in stats.values())
+        figures = ("solvetime_hist", "boxplot")
+    else:
+        assert "solve_time_stats" not in got
+        figures = ("boxplot", "trajectories")
+    stem = ("results_linear_extended" if app == "linear_extended"
+            else "results_" + app)
+    for name in figures:
+        png = tmp_path / "figures" / f"{stem}_{name}.png"
+        assert png.stat().st_size > 5000, name
     if app != "linear_extended":
         assert got["extended"] == (app == "nonlinear_extended")
         assert ran["max_angle"] <= 0.3
-    calls = got["counts"]
+    calls = got["counts"]         # the sweep's, not the one-tick timer's
     assert all(c["ip_calls"] == 6 for c in calls.values()), calls
 
 
