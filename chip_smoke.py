@@ -156,6 +156,26 @@ need matplotlib):
      float32's own distance); a condensed RT-MPC cartpole loop (B=200,
      T=60, 2 launches a step, finite).
 
+Then data parallelism over rollouts (``rtmpc_tpu_torch/parallel/
+distributed.py``, ``parallel/ranks.py``, ``entry.py``), run last:
+
+ 24. (a) the flagship sweep at full width, ``run_mc_sweep(group=...)`` at
+     B=16384 (one probability, 0.7), T=120, solver "cuda", float32,
+     sharded over 2 ranks that share cuda:0 over gloo (8192 rows a rank),
+     held to the same sweep in one process on the same draws: both ranks'
+     results identical, feasible equal and everywhere, every row finite,
+     max |dx| of the gathered trajectories within ``DP_DX``, K1 240 launches
+     a rank; each rank's wall time and the one process's printed with the
+     card (two processes time-share one card: no speed-up is expected or
+     claimed); (b) the Fig. 3a tube arm under "cuda" at full size (10 x 20 x
+     250, the cluster path, 100 rows a rank) in the same ranks: per-p rows
+     within 1e-6 (relative) of phase 11's one process, stopped runs equal,
+     500 launches a rank; (c) ``dryrun_multichip(2)`` (gloo, printed);
+     (d) a one-rank NCCL group on cuda:0 (``all_reduce``,
+     ``all_gather_into_tensor`` on CUDA tensors), and (a) over NCCL on
+     cuda:0 and cuda:1 where the machine has two cards (else printed as not
+     run).  K1 at a rank's B=8192 against its plain version, timed.
+
 Prints the kernels' JSON record on the line before the last and, as the
 last line, ``{"ok": true, "device": {...}}``.
 """
@@ -1167,6 +1187,194 @@ def phase_condensed_cartpole(sc, setups, dev):
     return launches, err, timing["track"]
 
 
+# Phase 24, data parallelism over rollouts.  On one card two ranks share
+# cuda:0 over gloo (NCCL refuses two ranks on one device); no speed-up is
+# expected from two processes time-sharing one card, and none is claimed.
+DP_RANKS = 2
+DP_TIMEOUT_S = 180.0     # each spawn of ranks
+# Gathered trajectories against the one-process run.  Read 0 (bitwise) on
+# an NVIDIA H100 80GB HBM3 at 700 W, both ranks on cuda:0: rows are
+# independent in K1 and in the step, so a shard computes its rows as the
+# whole batch does; the bar leaves room for a library that picks another
+# kernel at another batch size.
+DP_DX = 1e-5
+DP_ROWS_RTOL = 1e-6      # the Fig. 3a tube arm's per-p rows
+
+
+def _dp_flagship_job(setup):
+    """(a): the flagship sweep at full width, as ``sweep_rank`` takes it:
+    B=16384 runs at 70%/70% loss, T=120, the bench's reference."""
+    from rtmpc_tpu_torch.parallel import draw_sweep
+    to_dev = dict(dtype=torch.float32, solver="cuda", iters=ITERS,
+                  iters2=ITERS2, alpha=ALPHA, rho2_scale=RHO2_SCALE)
+    sweep = dict(T=T, n_mc=B_FULL, loss_probs=[P_LOSS],
+                 refs=_bench_refs(1, "cpu", torch.float64)[0].numpy(),
+                 x0=np.zeros(2), w_lo=-0.1 * np.ones(2),
+                 w_hi=0.1 * np.ones(2),
+                 draws=draw_sweep(torch.Generator().manual_seed(24), T,
+                                  B_FULL, [P_LOSS], 2))
+    return setup, to_dev, sweep
+
+
+def _dp_tube_job(tube_setup):
+    """(b): the Fig. 3a tube arm as phase 11 ran it (``results_linear
+    --solver cuda`` at full size, the committed seed-0 draws)."""
+    from rtmpc_tpu_torch.apps import results_linear
+    from rtmpc_tpu_torch.apps.common import (FULL_PROBS, RESULTS_ADMM_ITERS,
+                                             solver_kwargs, sweep_draws)
+    from rtmpc_tpu_torch.apps.scenarios import cartpole_scenario
+    args = results_linear.parse_args(["--device", "cuda", "--solver", "cuda",
+                                      "--no-figures"])
+    sc = cartpole_scenario()
+    refs = np.zeros((sc.T, 4))
+    refs[:, 0] = sc.ref_value
+    draws, _ = sweep_draws(args, torch.device("cpu"), sc.T, args.n_mc,
+                           FULL_PROBS, 4, results_linear.DRAWS_SEED0)
+    to_dev = dict(dtype=torch.float32,
+                  **solver_kwargs(args, admm_iters=RESULTS_ADMM_ITERS))
+    sweep = dict(T=sc.T, n_mc=args.n_mc, loss_probs=FULL_PROBS, refs=refs,
+                 x0=sc.x0, w_lo=sc.w_lo, w_hi=sc.w_hi, draws=draws,
+                 actuator_mode="consistent", n_chunks=args.n_chunks)
+    return tube_setup, to_dev, sweep
+
+
+def _check_dp_flagship(label, ranks, one, one_launches):
+    """(a)'s bars on the ranks' results of the flagship job: identical
+    across ranks, feasible and finite everywhere, equal to the one-process
+    run within ``DP_DX``, K1 2 a step on each rank."""
+    res = ranks[0]["result"]
+    for r in ranks[1:]:
+        for f in ("traj", "x_nom", "tracking_error", "feasible"):
+            _require(np.array_equal(getattr(r["result"], f),
+                                    getattr(res, f)), (label, "ranks", f))
+    launches = [r["launches"] for r in ranks]
+    dx = float(np.abs(res.traj - one.traj).max())
+    dxn = float(np.abs(res.x_nom - one.x_nom).max())
+    print("%s: %d ranks on %s; max |dx| of the gathered trajectories against "
+          "the one-process run %.3e%s (nominal states %.3e; bar %.0e); K1 "
+          "launches a rank %s (one process %d); wall s a rank %s (sweep "
+          "wall, gather included: %s; one process %.4f s); gathers a rank "
+          "%s, ms %s"
+          % (label, len(ranks), sorted({r["device"] for r in ranks}), dx,
+             " (bitwise)" if dx == 0 else "", dxn, DP_DX, launches,
+             one_launches, [r["wall_s"] for r in ranks],
+             [r["result"].wall_time_s for r in ranks], one.wall_time_s,
+             [r["gathers"] for r in ranks],
+             [1e3 * r["gather_s"] for r in ranks]))
+    _require(np.array_equal(res.feasible, one.feasible), (label, "feasible"))
+    _require(bool(res.feasible.all()), (label, "all feasible"))
+    for a in (res.traj, res.x_nom, res.tracking_error):
+        _require(bool(np.isfinite(a).all()), (label, "finite"))
+    _require(dx <= DP_DX and dxn <= DP_DX, (label, dx, dxn))
+    _require(all(n == 2 * T for n in launches) and one_launches == 2 * T,
+             (label, launches, one_launches))
+    _require(all(r["gathers"] == 1 for r in ranks), (label, "one gather"))
+
+
+def _nccl_one_rank(dev):
+    """(d): NCCL's own path in a one-rank group on ``dev``: ``all_reduce``
+    and ``all_gather_into_tensor`` on CUDA tensors."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from rtmpc_tpu_torch.parallel.distributed import initialize_from_env
+    store = tempfile.mkdtemp(prefix="rtmpc_nccl_")
+    try:
+        _require(initialize_from_env("nccl", "file://" + store + "/store",
+                                     1, 0))
+        _require(dist.get_backend() == "nccl", dist.get_backend())
+        t = torch.arange(1024, dtype=torch.float32, device=dev)
+        s = t.clone()
+        dist.all_reduce(s)
+        g = torch.empty_like(t)
+        dist.all_gather_into_tensor(g, t)
+        torch.cuda.synchronize()
+        _require(torch.equal(s, t) and torch.equal(g, t), "NCCL one rank")
+        print("one-rank NCCL group on %s: all_reduce and "
+              "all_gather_into_tensor on CUDA tensors equal their input" % dev)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def phase_data_parallel(setup, tube_setup, tube_res, dev):
+    """Phase 24: the flagship sweep at full width and the Fig. 3a tube arm,
+    each sharded over 2 ranks on cuda:0 (gloo) and held to one process;
+    ``dryrun_multichip(2)``; NCCL in a one-rank group, and across two cards
+    where the machine has them.  ``tube_res``: phase 11's tube arm, the
+    one-process run of the same sweep.  Returns K1's launches on the
+    ranks' flagship sweeps (each rank counts from 0 just before its sweep
+    and reads just after)."""
+    from rtmpc_tpu_torch.entry import dryrun_multichip
+    from rtmpc_tpu_torch.ops.kernel_bench import card
+    from rtmpc_tpu_torch.ops.qp_cuda import admm_solve_cuda
+    from rtmpc_tpu_torch.parallel import run_mc_sweep
+    from rtmpc_tpu_torch.parallel.ranks import spawn_ranks, sweep_rank
+    flag, tube = _dp_flagship_job(setup), _dp_tube_job(tube_setup)
+
+    # the one-process run of (a) on the same draws
+    arrays, cfg = setup.to_device(device=dev, **flag[1])
+    _reset_launches()
+    one = run_mc_sweep(arrays, cfg, **flag[2])
+    one_launches = admm_solve_cuda.launches
+
+    cards = torch.cuda.device_count()
+    print("phase 24: %d ranks over gloo on %s (rank r on card r modulo %d; "
+          "on one card NCCL refuses two ranks); %s"
+          % (DP_RANKS, ["cuda:%d" % (r % cards) for r in range(DP_RANKS)],
+             cards, card()))
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(sweep_rank, DP_RANKS, ([flag, tube], "cuda"),
+                        backend="gloo", timeout=DP_TIMEOUT_S)
+    print("phase 24 (a, b): the ranks took %.1f s, start-up included"
+          % (time.perf_counter() - t0))
+    flag_ranks = [r[0] for r in ranks]
+    _check_dp_flagship("(a) flagship B=%d T=%d" % (B_FULL, T), flag_ranks,
+                       one, one_launches)
+
+    # (b) the tube arm: rows and stops equal to phase 11's one process
+    res = ranks[0][1]["result"]
+    for r in ranks[1:]:
+        for f in ("traj", "tracking_error", "feasible"):
+            _require(np.array_equal(getattr(r[1]["result"], f),
+                                    getattr(res, f)), ("(b) ranks", f))
+    rows, rows1 = (np.nanmean(x.tracking_error, axis=1)
+                   for x in (res, tube_res))
+    rel = float(np.max(np.abs(rows - rows1) / np.abs(rows1)))
+    T_cp = res.traj.shape[2]
+    launches = [r[1]["launches"] for r in ranks]
+    print("(b) Fig. 3a tube arm, %d x %d x %d, %d rows a rank: per-p rows "
+          "against phase 11's one process, worst relative %.3e (bar %.0e); "
+          "stopped runs %s / %s; K1 launches a rank %s; wall s a rank %s "
+          "(one process %.4f s); gather ms a rank %s"
+          % (*res.tracking_error.shape, T_cp,
+             res.tracking_error.size // DP_RANKS, rel, DP_ROWS_RTOL,
+             res.infeasible_counts.tolist(),
+             tube_res.infeasible_counts.tolist(), launches,
+             [r[1]["wall_s"] for r in ranks], tube_res.wall_time_s,
+             [1e3 * r[1]["gather_s"] for r in ranks]))
+    _require(rel <= DP_ROWS_RTOL, ("(b) rows", rel))
+    _require(np.array_equal(res.infeasible_counts,
+                            tube_res.infeasible_counts), "(b) stops")
+    _require(all(n == 2 * T_cp for n in launches), ("(b)", launches))
+
+    # (c) the dry run
+    mean_err, frac = dryrun_multichip(DP_RANKS, "cuda")
+    _require(np.isfinite(mean_err) and frac == 1.0, (mean_err, frac))
+
+    # (d) NCCL
+    _nccl_one_rank(dev)
+    if torch.cuda.device_count() >= 2:
+        nccl = spawn_ranks(sweep_rank, 2, ([flag], "cuda"), backend="nccl",
+                           timeout=DP_TIMEOUT_S)
+        _check_dp_flagship("(d) flagship over NCCL, two cards",
+                           [r[0] for r in nccl], one, one_launches)
+    else:
+        print("one device: NCCL across cards not run")
+    return sum(r["launches"] for r in flag_ranks)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; this smoke run needs a GPU")
@@ -1181,7 +1389,7 @@ def main():
     from rtmpc_tpu_torch.models import flagship_setup
     from rtmpc_tpu_torch.ops.kernel_bench import (
         CP_F64_SMALL_B, CP_Y_ATOL, CP_Z_ATOL, EXT_F64_SMALL_B, EXT_Y_ATOL,
-        EXT_Z_ATOL, WIDTH_SHAPES, check_shapes)
+        EXT_Z_ATOL, WIDTH_SHAPES, Y_ATOL, Z_ATOL, check_shapes)
     from rtmpc_tpu_torch.ops.kernel_bench import card as _card
     from rtmpc_tpu_torch.ops.qp_cuda import admm_solve_cuda, build_kernel
 
@@ -1321,6 +1529,24 @@ def main():
     record("admm_solve_cuda (admm_kernel_cluster, condensed cartpole 32+712 "
            "and 32+760)", launches, err, *timing)
     print("phase 23 took %.1f s" % (time.perf_counter() - t0))
+
+    # data parallelism over rollouts: each rank's counts from 0
+    t0 = time.perf_counter()
+    dp_launches = phase_data_parallel(setup, fig3a["tube"], out["tube"], dev)
+    B_rank = B_FULL // DP_RANKS
+    th = torch.tensor(np.random.default_rng(24).uniform(-2, 2, (B_rank, 4)),
+                      dtype=torch.float32, device=dev)
+    err = _compare((arrays.admm, arrays.admm2),
+                   (arrays64.admm, arrays64.admm2), th, th, True,
+                   (ITERS, ITERS2), (Z_ATOL, Y_ATOL))
+    record("admm_solve_cuda (admm_kernel, a rank's shard of the "
+           "data-parallel flagship sweep, B=%d)" % B_rank, dp_launches, err,
+           *_timed_phase("flagship 40+112, a rank's shard", B_rank,
+                         arrays.admm, th, ITERS, dev, reps=20))
+    kernels[-1]["launches_counted_as"] = (
+        "%d on each of %d gloo ranks (spawned processes, rank r on card r "
+        "modulo the cards)" % (2 * T, DP_RANKS))
+    print("phase 24 took %.1f s" % (time.perf_counter() - t0))
     _require("jax" not in sys.modules)
 
     print("chip_smoke.py took %.1f s" % (time.perf_counter() - t_start))

@@ -925,21 +925,10 @@ cudaError_t launch_small(RTMPC_ADMM_PARAMS, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point (bound with ctypes).  Launches one solve of `iters`
-// iterations for B rows on `stream` and returns cudaGetLastError() of the
-// launch (0 on success); a refused launch never runs, so the caller must check.
-// n + m <= 192 runs admm_kernel (G in shared memory; 64 rows a block where
-// they fit beside G, else 32), n + m <= 2048 admm_kernel_cluster (G from L2;
-// 16 rows a cluster up to 1024 columns, 8 above); a larger QP is refused.
-extern "C" int rtmpc_admm_solve_f32(RTMPC_ADMM_PARAMS, int device, void* stream_p) {
+// Launches on the calling thread's current device (the caller makes it the
+// inputs' device).
+int solve_on_current_device(RTMPC_ADMM_PARAMS, cudaStream_t stream) {
   const int nm = n + m;
-  if (B <= 0 || n <= 0 || m <= 0 || nt < 0 || iters < 0 || nm > kMaxColsLarge)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const cudaStream_t stream = (cudaStream_t)stream_p;
   if (nm > kMaxColsSmall) {
     const bool vec = nm % 4 == 0 && ((uintptr_t)Gxc | (uintptr_t)Gsc | (uintptr_t)Kcat) % 16 == 0;
     if (nm <= 128 * kCluster) {
@@ -955,6 +944,30 @@ extern "C" int rtmpc_admm_solve_f32(RTMPC_ADMM_PARAMS, int device, void* stream_
     return (int)launch_small<8>(RTMPC_ADMM_ARGS, 2 * nchunks * 32, smem64, stream);
   return (int)launch_small<4>(RTMPC_ADMM_ARGS, nchunks * 32,
                               small_smem_floats(n, m, 32) * sizeof(float), stream);
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes).  Launches one solve of `iters`
+// iterations for B rows on `stream` of `device` and returns
+// cudaGetLastError() of the launch (0 on success); a refused launch never
+// runs, so the caller must check.  The calling thread's current device is
+// the same on return as on entry (a data-parallel rank on another card than
+// its thread's current one must not have that device switched under it).
+// n + m <= 192 runs admm_kernel (G in shared memory; 64 rows a block where
+// they fit beside G, else 32), n + m <= 2048 admm_kernel_cluster (G from L2;
+// 16 rows a cluster up to 1024 columns, 8 above); a larger QP is refused.
+extern "C" int rtmpc_admm_solve_f32(RTMPC_ADMM_PARAMS, int device, void* stream_p) {
+  if (B <= 0 || n <= 0 || m <= 0 || nt < 0 || iters < 0 || n + m > kMaxColsLarge)
+    return (int)cudaErrorInvalidValue;
+  int caller = 0;
+  cudaError_t err = cudaGetDevice(&caller);
+  if (err != cudaSuccess) return (int)err;
+  if (caller != device && (err = cudaSetDevice(device)) != cudaSuccess) return (int)err;
+  const int rc = solve_on_current_device(RTMPC_ADMM_ARGS, (cudaStream_t)stream_p);
+  if (caller != device && (err = cudaSetDevice(caller)) != cudaSuccess && rc == 0)
+    return (int)err;
+  return rc;
 }
 
 // Rows a block (small path) or a cluster (large path) for composites n + m

@@ -8,6 +8,10 @@ returns the artifacts of the reference's Results scripts: per-(p, run) RMS
 tracking errors (NaN where the arm stopped), infeasibility counts, and one
 sample trajectory per loss probability.
 
+With a data-parallel ``group`` of several ranks (``parallel/distributed.py``)
+each rank runs its contiguous slice of each chunk's rows and the results
+are gathered once a chunk, so every rank returns the same result.
+
 The draws are data.  They come in as ``SweepDraws`` (the loss masks and the
 float32 uniforms behind the disturbances), either carried over from the
 JAX package (``jax.random`` bits cannot be made in torch; see
@@ -24,9 +28,11 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.specs import ControllerArrays, ControllerConfig
 from ..protocol.network import draw_loss_masks
+from .distributed import gather_rows, shard_rows
 from .rollout import make_batched_rollout, tracking_error_rms
 
 __all__ = ["SweepDraws", "MCSweepResult", "draw_sweep", "load_draws",
@@ -71,6 +77,8 @@ class MCSweepResult:
     sample_x_nom: np.ndarray        # (P, T, nx)
     feasible: np.ndarray            # (P, M) bool
     wall_time_s: float = 0.0
+    traj: Optional[np.ndarray] = None   # (P, M, T, nx) every run's states
+    x_nom: Optional[np.ndarray] = None  # (P, M, T, nx) and nominal states
 
     @property
     def n_mc(self) -> int:
@@ -94,6 +102,7 @@ def run_mc_sweep(
     sample_mc_index: int = 5,
     checkpoint_path: Optional[str] = None,
     n_chunks: int = 1,
+    group=None,
 ) -> MCSweepResult:
     """Run the full sweep on the arrays' device; returns numpy artifacts.
 
@@ -114,6 +123,15 @@ def run_mc_sweep(
     callable carries one, else its qualified name), so a checkpoint of
     another sweep is ignored.  Chunked and resumed runs are bit-identical
     to a single-shot run.
+
+    ``group``: a data-parallel process group (``distributed.dp_group()``).
+    With several ranks each runs its ``shard_rows`` slice of each chunk's
+    rows on its arrays' device; the trajectories, errors and feasibility
+    flags are gathered once a chunk (``distributed.gather_rows``), so
+    every rank returns the same result, and ``wall_time_s`` includes the
+    gather.  Rank 0 alone writes the checkpoint, then the ranks meet at a
+    barrier; on resume every rank reads it.  ``None`` or a group of one
+    rank is the one-process sweep.
     """
     loss_probs = np.asarray(loss_probs, dtype=np.float64)
     P, M = len(loss_probs), int(n_mc)
@@ -145,9 +163,11 @@ def run_mc_sweep(
     err = np.full((P, M), np.nan)
     feas = np.zeros((P, M), bool)
     si = min(sample_mc_index, M - 1)
-    sample_traj = np.zeros((P, T, nx))
-    sample_x_nom = np.zeros((P, T, nx))
+    traj = np.zeros((P, M, T, nx))
+    x_nom = np.zeros((P, M, T, nx))
     wall = 0.0
+    dp = group is not None and dist.get_world_size(group) > 1
+    writer = not dp or dist.get_rank(group) == 0
 
     plant_id = "linear" if plant_step is None else getattr(
         plant_step, "plant_id",
@@ -165,44 +185,68 @@ def run_mc_sweep(
                     np.array_equal(ck["fingerprint"], fingerprint):
                 start_chunk = int(ck["next_chunk"])
                 err, feas = ck["err"], ck["feas"]
-                sample_traj = ck["sample_traj"]
-                sample_x_nom = ck["sample_x_nom"]
+                traj, x_nom = ck["traj"], ck["x_nom"]
                 wall = float(ck["wall"])
 
     for ci in range(start_chunk, n_chunks):
         lo, hi = bounds[ci], bounds[ci + 1]
         if hi == lo:
             continue
-        sl = slice(lo * M, hi * M)
-        t0 = time.perf_counter()
-        carry, outs = roll(x0_b[sl], refs_b[sl], w[sl], theta[sl], gamma[sl])
-        err_c = tracking_error_rms(x0_b[sl], outs.x, refs_b[sl],
-                                   carry.feasible)
         npp = hi - lo
-        xs_c = outs.x.double().cpu().numpy().reshape(npp, M, T, nx)
-        xn_c = outs.x_nom.double().cpu().numpy().reshape(npp, M, T, nx)
-        err[lo:hi] = err_c.double().cpu().numpy().reshape(npp, M)
-        feas[lo:hi] = carry.feasible.cpu().numpy().reshape(npp, M)
+        n_rows = npp * M
+        rows = shard_rows(n_rows, group) if dp else slice(0, n_rows)
+        sl = slice(lo * M + rows.start, lo * M + rows.stop)
+        t0 = time.perf_counter()
+        if rows.stop > rows.start:
+            carry, outs = roll(x0_b[sl], refs_b[sl], w[sl], theta[sl],
+                               gamma[sl])
+            err_c = tracking_error_rms(x0_b[sl], outs.x, refs_b[sl],
+                                       carry.feasible)
+        if dp:
+            # one gather a chunk: trajectories, nominal states, errors and
+            # feasibility of this rank's rows side by side (float64 holds
+            # the engine's values and the flags exactly)
+            k = rows.stop - rows.start
+            mine = (torch.cat([outs.x.reshape(k, -1).double(),
+                               outs.x_nom.reshape(k, -1).double(),
+                               err_c.double()[:, None],
+                               carry.feasible.double()[:, None]], dim=1)
+                    if k else torch.zeros(0, 2 * T * nx + 2,
+                                          dtype=torch.float64))
+            full = gather_rows(mine, n_rows, group).numpy()
+            xs_c = full[:, :T * nx].reshape(npp, M, T, nx)
+            xn_c = full[:, T * nx:2 * T * nx].reshape(npp, M, T, nx)
+            err[lo:hi] = full[:, -2].reshape(npp, M)
+            feas[lo:hi] = full[:, -1].reshape(npp, M) != 0
+        else:
+            xs_c = outs.x.double().cpu().numpy().reshape(npp, M, T, nx)
+            xn_c = outs.x_nom.double().cpu().numpy().reshape(npp, M, T, nx)
+            err[lo:hi] = err_c.double().cpu().numpy().reshape(npp, M)
+            feas[lo:hi] = carry.feasible.cpu().numpy().reshape(npp, M)
         dt_chunk = time.perf_counter() - t0
         wall += dt_chunk
-        print(f"  [mc] chunk {ci + 1}/{n_chunks} "
-              f"(p={loss_probs[lo]:.2f}..{loss_probs[hi - 1]:.2f}) "
-              f"{dt_chunk:.1f}s", flush=True)
-        sample_traj[lo:hi] = xs_c[:, si]
-        sample_x_nom[lo:hi] = xn_c[:, si]
-        if checkpoint_path:
+        if writer:
+            print(f"  [mc] chunk {ci + 1}/{n_chunks} "
+                  f"(p={loss_probs[lo]:.2f}..{loss_probs[hi - 1]:.2f}) "
+                  f"{dt_chunk:.1f}s", flush=True)
+        traj[lo:hi] = xs_c
+        x_nom[lo:hi] = xn_c
+        if checkpoint_path and writer:
             tmp = checkpoint_path + ".tmp.npz"     # atomic write + rename
             np.savez(tmp, fingerprint=fingerprint, next_chunk=ci + 1,
-                     err=err, feas=feas, sample_traj=sample_traj,
-                     sample_x_nom=sample_x_nom, wall=wall)
+                     err=err, feas=feas, traj=traj, x_nom=x_nom, wall=wall)
             os.replace(tmp, checkpoint_path)
+        if checkpoint_path and dp:
+            dist.barrier(group)
 
     return MCSweepResult(
         loss_probs=loss_probs,
         tracking_error=err,
         infeasible_counts=(~feas).sum(axis=1),
-        sample_traj=sample_traj,
-        sample_x_nom=sample_x_nom,
+        sample_traj=traj[:, si],
+        sample_x_nom=x_nom[:, si],
         feasible=feas,
+        traj=traj,
+        x_nom=x_nom,
         wall_time_s=wall,
     )

@@ -511,3 +511,104 @@ def test_condensed_cartpole_matches_plain_version(cartpole, arm, B):
                        (CP_Z_ATOL, COND_CP_Y_ATOL),
                        specs64=specs[torch.float64],
                        f64_bars=COND_CP_F64_SMALL_B if B == 1 else None)
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism: K1 on another card than the caller's current one, and a
+# sweep sharded over two ranks on one card
+# ---------------------------------------------------------------------------
+
+def test_kernel_on_second_card_keeps_current_device():
+    """K1 on cuda:1 while the thread's current device is 0: equal to its
+    plain version at the flagship shape, and the current device is 0
+    again after the launch (a rank must not have its device switched)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: K1 on cuda:1 with the current "
+                    "device 0")
+    torch.cuda.set_device(0)
+    arrays, _ = flagship_setup().to_device(torch.float32, "cuda:1",
+                                           solver="cuda", **KW)
+    th = _theta(4099, 11).to("cuda:1")
+    before = admm_solve_cuda.launches
+    got = admm_solve_cuda(arrays.admm, th, None, 60)
+    assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(1)
+    assert admm_solve_cuda.launches == before + 1
+    assert got.state.x.device == torch.device("cuda", 1)
+    want = _admm_solve_cuda_plain(arrays.admm, th, None, 60)
+    _assert_close(got, want)
+
+
+def test_two_rank_gloo_sweep_on_card_equals_one_process():
+    """``run_mc_sweep`` sharded over two gloo ranks (on a one-card machine
+    both share cuda:0; rank r takes card r modulo the cards): both ranks'
+    results identical, equal to the one-process sweep on the same draws
+    (trajectories within 1e-5, feasibility equal), K1 launched 2 a step on
+    each rank."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the ADMM kernel has no CPU mode")
+    from rtmpc_tpu_torch.parallel import draw_sweep, run_mc_sweep
+    from rtmpc_tpu_torch.parallel.ranks import spawn_ranks, sweep_rank
+    T, n_mc = 30, 512
+    refs = np.zeros((T, 2))
+    refs[:, 0] = 4.0
+    sweep = dict(T=T, n_mc=n_mc, loss_probs=[0.7], refs=refs,
+                 x0=np.zeros(2), w_lo=-0.1 * np.ones(2),
+                 w_hi=0.1 * np.ones(2),
+                 draws=draw_sweep(torch.Generator().manual_seed(3), T, n_mc,
+                                  [0.7], 2))
+    to_dev = dict(dtype=torch.float32, solver="cuda", **KW)
+    setup = flagship_setup()
+    ranks = spawn_ranks(sweep_rank, 2, ([(setup, to_dev, sweep)], "cuda"),
+                        timeout=180.0)
+    arrays, cfg = setup.to_device(device="cuda", **to_dev)
+    one = run_mc_sweep(arrays, cfg, **sweep)
+    (r0,), (r1,) = ranks
+    for f in ("traj", "x_nom", "tracking_error", "feasible"):
+        np.testing.assert_array_equal(getattr(r0["result"], f),
+                                      getattr(r1["result"], f), err_msg=f)
+    assert r0["launches"] == r1["launches"] == 2 * T
+    cards = torch.cuda.device_count()
+    assert (r0["device"], r1["device"]) == ("cuda:0", f"cuda:{1 % cards}")
+    res = r0["result"]
+    np.testing.assert_array_equal(res.feasible, one.feasible)
+    assert res.feasible.all()
+    assert np.abs(res.traj - one.traj).max() <= 1e-5
+
+
+def test_two_rank_nccl_sweep_across_cards_equals_one_process(tmp_path):
+    """The sweep over NCCL, one card a rank (cuda:0 and cuda:1), in two
+    chunks with a checkpoint (the ranks meet at a barrier of the NCCL
+    group; the gather rides a gloo group beside it): both ranks' results
+    identical and equal to one process on cuda:0 (trajectories within
+    1e-5), K1 2 launches a step on each rank."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL puts one rank on each")
+    from rtmpc_tpu_torch.parallel import draw_sweep, run_mc_sweep
+    from rtmpc_tpu_torch.parallel.ranks import spawn_ranks, sweep_rank
+    T, n_mc, probs = 30, 256, [0.3, 0.7]
+    refs = np.zeros((T, 2))
+    refs[:, 0] = 4.0
+    sweep = dict(T=T, n_mc=n_mc, loss_probs=probs, refs=refs,
+                 x0=np.zeros(2), w_lo=-0.1 * np.ones(2),
+                 w_hi=0.1 * np.ones(2), n_chunks=2,
+                 draws=draw_sweep(torch.Generator().manual_seed(4), T, n_mc,
+                                  probs, 2))
+    to_dev = dict(dtype=torch.float32, solver="cuda", **KW)
+    setup = flagship_setup()
+    ranks = spawn_ranks(
+        sweep_rank, 2,
+        ([(setup, to_dev,
+           dict(sweep, checkpoint_path=str(tmp_path / "ck.npz")))], "cuda"),
+        backend="nccl", timeout=180.0)
+    arrays, cfg = setup.to_device(device="cuda:0", **to_dev)
+    one = run_mc_sweep(arrays, cfg, **sweep)
+    (r0,), (r1,) = ranks
+    assert (r0["device"], r1["device"]) == ("cuda:0", "cuda:1")
+    for f in ("traj", "x_nom", "tracking_error", "feasible"):
+        np.testing.assert_array_equal(getattr(r0["result"], f),
+                                      getattr(r1["result"], f), err_msg=f)
+    assert r0["launches"] == r1["launches"] == 2 * 2 * T
+    res = r0["result"]
+    np.testing.assert_array_equal(res.feasible, one.feasible)
+    assert np.abs(res.traj - one.traj).max() <= 1e-5

@@ -2,7 +2,8 @@
 its kernel build fails loudly without nvcc.
 
 The run-time checks (every app and module of the port, down to the
-condensed QP and Fig. 3d's timer) run in a fresh interpreter (a
+condensed QP and Fig. 3d's timer; and the data-parallel path and the
+entry points in a one-rank gloo group) run in a fresh interpreter (a
 subprocess), so nothing this test process imported (JAX included, via
 ``conftest.py``) leaks in; there every import of ``jax`` or of
 ``rtmpc_tpu`` raises.  A third check reads the port's sources for such
@@ -160,6 +161,44 @@ _BUILD = _BLOCK_JAX + textwrap.dedent("""
 """)
 
 
+_ONE_RANK = _BLOCK_JAX + textwrap.dedent("""
+    import os, sys
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from rtmpc_tpu_torch.entry import entry
+    from rtmpc_tpu_torch.models import flagship_setup
+    from rtmpc_tpu_torch.parallel import draw_sweep, run_mc_sweep
+    from rtmpc_tpu_torch.parallel.distributed import (
+        dp_group, gather_rows, initialize_from_env, shard_rows)
+    from rtmpc_tpu_torch.parallel.ranks import spawn_ranks  # noqa: F401
+
+    store = "file://" + os.path.join(os.getcwd(), "store")
+    assert initialize_from_env("gloo", store, world_size=1, rank=0)
+    assert initialize_from_env() and dp_group() is None
+    assert shard_rows(5) == slice(0, 5)
+    t = torch.arange(10.0).reshape(5, 2)
+    assert torch.equal(gather_rows(t, 5), t)
+    arrays, cfg = flagship_setup().to_device(
+        torch.float64, "cpu", iters=20, iters2=20, solver="admm")
+    refs = np.zeros((3, 2))
+    refs[:, 0] = 4.0
+    kw = dict(T=3, n_mc=2, loss_probs=[0.5], refs=refs, x0=np.zeros(2),
+              w_lo=-0.1 * np.ones(2), w_hi=0.1 * np.ones(2),
+              draws=draw_sweep(torch.Generator().manual_seed(0), 3, 2,
+                               [0.5], 2))
+    one = run_mc_sweep(arrays, cfg, **kw)
+    ranked = run_mc_sweep(arrays, cfg, group=dist.group.WORLD, **kw)
+    assert np.array_equal(one.traj, ranked.traj)
+    assert bool(entry("cpu")[0](*entry("cpu")[1])[0].feasible.all())
+    dist.destroy_process_group()
+    assert not [m for m in sys.modules
+                if m in ("jax", "rtmpc_tpu")
+                or m.startswith(("jax.", "rtmpc_tpu."))]
+    print("OK")
+""")
+
+
 def _run(code, env, tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                           env=env, capture_output=True, text=True,
@@ -177,6 +216,12 @@ def _env(**extra):
 
 def test_port_runs_with_jax_blocked(tmp_path):
     _run(_ROLLOUT, _env(), tmp_path)
+
+
+def test_one_gloo_rank_with_jax_blocked(tmp_path):
+    """The data-parallel path (``distributed.py``, ``ranks.py``, the
+    sharded sweep) and ``entry.py`` in a one-rank gloo group."""
+    _run(_ONE_RANK, _env(), tmp_path)
 
 
 def test_kernel_build_without_nvcc_raises(tmp_path):

@@ -257,13 +257,13 @@ def test_checkpoint_resume_equals_single_shot(tmp_path):
     part["next_chunk"] = np.asarray(1)
     part["err"][1:] = np.nan
     part["feas"][1:] = False
-    part["sample_traj"][1:] = 0.0
-    part["sample_x_nom"][1:] = 0.0
+    part["traj"][1:] = 0.0
+    part["x_nom"][1:] = 0.0
     np.savez(path, **part)
     resumed = run_mc_sweep(arrays, cfg, draws=draws, checkpoint_path=path,
                            n_chunks=3, **common)
     for f in ("tracking_error", "feasible", "infeasible_counts",
-              "sample_traj", "sample_x_nom"):
+              "sample_traj", "sample_x_nom", "traj", "x_nom"):
         np.testing.assert_array_equal(getattr(resumed, f),
                                       getattr(single, f), err_msg=f)
 
