@@ -176,6 +176,29 @@ distributed.py``, ``parallel/ranks.py``, ``entry.py``), run last:
      cuda:0 and cuda:1 where the machine has two cards (else printed as not
      run).  K1 at a rank's B=8192 against its plain version, timed.
 
+Then the last solver modes (``rtmpc_tpu_torch/ops/ip_riccati.py:
+ip_riccati_solve_hybrid``, ``ops/qp.py:admm_solve(early_tol=...)``):
+
+ 25. (a) Fig. 3a's RT-MPC tube arm at full width (B=200: 10 loss
+     probabilities x 20 runs, N=20, the committed draws), T cut from 250
+     to 20, under ``ip_hybrid`` (30 float32 + 12 float64 iterations,
+     float32 engine) and float64 ``ip_riccati`` on the same draws: both
+     feasible everywhere and finite, the same stops, every per-p mean RMS
+     of the hybrid within 1% (relative) of the float64 row; each one's
+     seconds a step, IP iterations a step (the hybrid's phases apart) and
+     the IP's device launches a step (launches an iteration from
+     ``torch.profiler`` over short fixed-budget solves, times the
+     iterations) printed; (b) Fig. 3d under ``ip_hybrid`` (phase 20's
+     method: the hybrid captured whole in a one-tick graph, its first 20
+     ticks equal the eager ones to 1e-9, p50, p99 and max over 120 ticks,
+     capture and instantiation seconds) beside phase 20's float64
+     numbers; (c) the
+     flagship's served shape (B=1, T=120) eagerly under solver "admm",
+     float32, 60+60 iterations with ``early_tol=1e-3`` on phase 2 and with
+     the fixed budget: chunks a step and ms a step of each; feasible, the
+     tube invariant at every step, the early-exit trajectory within 1e-3
+     of the port's float64 CPU run under the same ``early_tol``.
+
 Prints the kernels' JSON record on the line before the last and, as the
 last line, ``{"ok": true, "device": {...}}``.
 """
@@ -881,34 +904,38 @@ def _print_fig3d(label, payload):
         _require(st["n_solves"] > 0 and np.isfinite(st["max_ms"]), arm)
 
 
-def phase_fig3d_ip(sc, setups, dev):
-    """Phase 20: Fig. 3d under the structured interior point in float64,
-    one tick a dispatch, each tick one replay of a one-tick CUDA graph that
-    holds the whole interior point (its fixed iteration budget, no read of
-    the device): its first ticks equal the same ticks run eagerly (early
-    exit) to ``IP_GRAPH_TOL``, then results_linear's statistics at its
-    full T."""
+def phase_fig3d_ip(sc, setups, dev, solver="ip_riccati", n_ticks=T_FIG3D):
+    """Phase 20 (and 25 b under ``solver="ip_hybrid"``): Fig. 3d under the
+    structured interior point, the app's dtype for the solver (float64;
+    float32 under the hybrid, whose interior point is float64 all the
+    same), one tick a dispatch, each tick one replay of a one-tick CUDA
+    graph that holds the whole interior point (its fixed iteration budget,
+    both phases of the hybrid, no read of the device): its first ticks
+    equal the same ticks run eagerly (early exit) to ``IP_GRAPH_TOL``, then
+    results_linear's statistics over ``n_ticks`` ticks (its full T by
+    default).  Returns the statistics and the session's capture and
+    instantiation seconds."""
     from rtmpc_tpu_torch.apps import results_linear
-    from rtmpc_tpu_torch.apps.common import (IP_ITERS, fig3d_inputs,
-                                             solve_time_stats)
+    from rtmpc_tpu_torch.apps.common import (fig3d_inputs, resolve,
+                                             solve_time_stats, solver_kwargs)
     from rtmpc_tpu_torch.parallel import make_batched_rollout
     from rtmpc_tpu_torch.parallel.session import Session
-    args = results_linear.parse_args(["--device", "cuda", "--no-figures"])
-    arrays, cfg = setups["tube"].to_device(torch.float64, dev,
-                                           solver="ip_riccati",
-                                           ip_iters=IP_ITERS)
+    args = results_linear.parse_args(["--device", "cuda", "--no-figures",
+                                      "--solver", solver])
+    resolve(args)
+    dtype = getattr(torch, args.dtype)
+    arrays, cfg = setups["tube"].to_device(dtype, dev, **solver_kwargs(args))
     inputs = fig3d_inputs(args.seed, sc, T_FIG3D)
     refs, w, theta, gamma = (
         torch.as_tensor(a[:GRAPH_TICKS], dtype=d).to(dev)
-        for a, d in zip(inputs, (torch.float64, torch.float64, torch.int32,
-                                 torch.int32)))
+        for a, d in zip(inputs, (dtype, dtype, torch.int32, torch.int32)))
     t0 = time.perf_counter()
     ses = Session(arrays, cfg, 1, sc.x0)
     torch.cuda.synchronize()
-    print("one-tick IP session built in %.2f s: capture %.2f s, "
+    print("one-tick %s session (%s) built in %.2f s: capture %.2f s, "
           "instantiation %.2f s (warm-up tick, eager, included in the "
-          "first)" % (time.perf_counter() - t0, ses.capture_s,
-                      ses.instantiate_s))
+          "first)" % (solver, args.dtype, time.perf_counter() - t0,
+                      ses.capture_s, ses.instantiate_s))
     _require(ses.graph is not None)
     ticks = []
     for t in range(GRAPH_TICKS):
@@ -918,7 +945,7 @@ def phase_fig3d_ip(sc, setups, dev):
     graph = [torch.cat(f, dim=1) for f in zip(*ticks)]
     t0 = time.perf_counter()
     _, eager = make_batched_rollout(arrays, cfg, GRAPH_TICKS)(
-        torch.as_tensor(sc.x0, dtype=torch.float64).to(dev)[None],
+        torch.as_tensor(sc.x0, dtype=dtype).to(dev)[None],
         refs[None], w[None], theta[None], gamma[None])
     torch.cuda.synchronize()
     t_eager = time.perf_counter() - t0
@@ -931,12 +958,12 @@ def phase_fig3d_ip(sc, setups, dev):
     t0 = time.perf_counter()
     stats = solve_time_stats(args, sc,
                              {"RT-MPC": (arrays, cfg, "consistent")},
-                             T_FIG3D)
-    print("results_linear Fig. 3d under ip_riccati (float64), %d ticks, "
-          "in %.1f s" % (T_FIG3D, time.perf_counter() - t0))
-    _print_fig3d("results_linear ip_riccati", {"solve_time_stats":
-                                               stats["RT-MPC"]})
-    return stats["RT-MPC"]
+                             n_ticks)
+    print("results_linear Fig. 3d under %s (%s), %d ticks, in %.1f s"
+          % (solver, args.dtype, n_ticks, time.perf_counter() - t0))
+    _print_fig3d("results_linear " + solver, {"solve_time_stats":
+                                              stats["RT-MPC"]})
+    return stats["RT-MPC"], (ses.capture_s, ses.instantiate_s)
 
 
 def phase_estimate_w(sc, dev):
@@ -1375,6 +1402,212 @@ def phase_data_parallel(setup, tube_setup, tube_res, dev):
     return sum(r["launches"] for r in flag_ranks)
 
 
+# Phase 25: the hybrid interior point and the ADMM's early exit.
+# Fig. 3a's T of 250 cut to 20 to fit the time limit: at 40, with the
+# launches counted by profiling two whole steps, phase 25 took 335.5 s of
+# a 1200 s script that took 682.5-814.3 s without it (NVIDIA H100 80GB
+# HBM3, 700 W).
+T_HYB = 20
+HYB_ROWS_RTOL = 1e-2      # hybrid per-p mean RMS against float64's
+EARLY_TOL = 1e-3          # the JAX package's BENCH_EARLY_TOL
+T_FIG3D_HYB = 120         # Fig. 3d's ticks under the hybrid (phase 20: 250)
+
+
+def _tube_sweep(sc, arrays, cfg, draws, T_run, dev):
+    from rtmpc_tpu_torch.apps.common import FULL_PROBS
+    from rtmpc_tpu_torch.parallel.mc import SweepDraws, run_mc_sweep
+    refs = np.zeros((T_run, 4))
+    refs[:, 0] = sc.ref_value
+    return run_mc_sweep(
+        arrays, cfg, T=T_run, n_mc=20, loss_probs=FULL_PROBS, refs=refs,
+        x0=sc.x0, w_lo=sc.w_lo, w_hi=sc.w_hi,
+        draws=SweepDraws(*(a[:, :T_run] for a in draws)),
+        actuator_mode="consistent")
+
+
+def _ip_launches(sc, arrays, cfg, dev):
+    """Device launches of the structured IP at B=200, from
+    ``torch.profiler`` over short solves that run a fixed budget: ``{dtype:
+    launches an iteration}`` and the launches of a solve with no
+    iteration (start, final residuals; the hybrid's two phases)."""
+    from rtmpc_tpu_torch.ops.ip_riccati import (ip_riccati_solve,
+                                                ip_riccati_solve_hybrid)
+    from rtmpc_tpu_torch.parallel.step_profile import _profiled
+    th = torch.tensor(np.concatenate([sc.x0, [sc.ref_value, 0, 0, 0]]),
+                      dtype=torch.float64, device=dev).expand(200, -1)
+    spec = arrays.ric
+
+    def count(fn):
+        fn()                                      # warm-up
+        return sum(c for c, _ in _profiled(fn)[1].values())
+
+    def solve(s, k):
+        return lambda: ip_riccati_solve(s, th, cfg.N, iters=k,
+                                        early_exit=False)
+    specs = {"float64": spec}
+    if cfg.solver == "ip_hybrid":
+        specs["float32"] = spec._make(a.float() for a in spec)
+        fixed = count(lambda: ip_riccati_solve_hybrid(
+            spec, th, cfg.N, iters32=0, iters64=0, early_exit=False))
+    else:
+        fixed = count(solve(spec, 0))
+    per_iter = {dt: (count(solve(s, 2)) - count(solve(s, 0))) / 2
+                for dt, s in specs.items()}
+    return per_iter, fixed
+
+
+def phase_hybrid_sweep(sc, setups, dev):
+    """Phase 25 (a): Fig. 3a's RT-MPC tube arm at full width (B=200: 10
+    loss probabilities x 20 runs, N=20, the committed seed-0 draws), T cut
+    to ``T_HYB``, under ``ip_hybrid`` (the apps' 30 float32 + 12 float64
+    iterations, float32 engine) and float64 ``ip_riccati`` (30): feasible
+    everywhere, finite, the same stops, every per-p mean RMS of the
+    hybrid within ``HYB_ROWS_RTOL`` (relative) of the float64 row; per
+    step the wall seconds, the IP iterations (the hybrid's two phases
+    apart) and the IP's device launches (``_ip_launches``: launches an
+    iteration, profiled, times the iterations, plus a solve's fixed
+    launches).  Returns the readings by solver."""
+    from types import SimpleNamespace
+    from rtmpc_tpu_torch.apps.common import solver_kwargs
+    from rtmpc_tpu_torch.apps.results_linear import DRAWS_SEED0
+    from rtmpc_tpu_torch.ops.ip_riccati import (ip_riccati_solve,
+                                                ip_riccati_solve_hybrid)
+    from rtmpc_tpu_torch.parallel.mc import load_draws
+    draws = load_draws(DRAWS_SEED0, dev)
+    out = {}
+    for solver, dtype in (("ip_riccati", torch.float64),
+                          ("ip_hybrid", torch.float32)):
+        args = SimpleNamespace(solver=solver, dtype=str(dtype)[6:])
+        arrays, cfg = setups["tube"].to_device(dtype, dev,
+                                               **solver_kwargs(args))
+        per_iter, fixed = _ip_launches(sc, arrays, cfg, dev)
+        ip_riccati_solve.iterations = 0
+        ip_riccati_solve_hybrid.iterations32 = 0
+        ip_riccati_solve_hybrid.iterations64 = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = _tube_sweep(sc, arrays, cfg, draws, T_HYB, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        r = dict(res=res, wall=wall, step_s=wall / T_HYB,
+                 iters=ip_riccati_solve.iterations / T_HYB,
+                 iters32=ip_riccati_solve_hybrid.iterations32 / T_HYB,
+                 iters64=ip_riccati_solve_hybrid.iterations64 / T_HYB,
+                 per_iter=per_iter, fixed=fixed)
+        if solver == "ip_hybrid":
+            r["launches"] = (fixed + per_iter["float32"] * r["iters32"]
+                             + per_iter["float64"] * r["iters64"])
+        else:
+            r["launches"] = fixed + per_iter["float64"] * r["iters"]
+        out[solver] = r
+        print("phase 25 (a) %s (%s engine): %.2f s for %d steps of 200 "
+              "rollouts, %.4f s a step; IP iterations a step %.3f "
+              "(float32 %.3f, float64 %.3f); IP launches a step %.0f (%s "
+              "an iteration, profiled, x the iterations, + %d a solve)"
+              % (solver, args.dtype, wall, T_HYB, r["step_s"], r["iters"],
+                 r["iters32"], r["iters64"], r["launches"],
+                 ", ".join("%.0f in %s" % (n, dt)
+                           for dt, n in per_iter.items()), fixed))
+        _require(bool(res.feasible.all()), (solver, "tube arm feasible"))
+        for a in (res.tracking_error, res.sample_traj, res.sample_x_nom):
+            _require(bool(np.isfinite(a).all()), (solver, "finite"))
+    f64, hyb = out["ip_riccati"]["res"], out["ip_hybrid"]["res"]
+    _require(np.array_equal(f64.infeasible_counts, hyb.infeasible_counts),
+             (f64.infeasible_counts, hyb.infeasible_counts))
+    rows64 = np.nanmean(f64.tracking_error, axis=1)
+    rows_h = np.nanmean(hyb.tracking_error, axis=1)
+    rel = np.abs(rows_h - rows64) / np.abs(rows64)
+    for p, a, b, e in zip(f64.loss_probs, rows64, rows_h, rel):
+        print("  p=%.1f  mean RMS float64 %.6f  hybrid %.6f  rel %.3e"
+              % (p, a, b, e))
+    worst = float(rel.max())
+    print("phase 25 (a): hybrid rows against float64, worst relative "
+          "%.3e at p=%.1f (bar %g)"
+          % (worst, f64.loss_probs[int(rel.argmax())], HYB_ROWS_RTOL))
+    _require(worst <= HYB_ROWS_RTOL, worst)
+    out["worst_rel"] = worst
+    return out
+
+
+def phase_early_exit_b1(setup, dev):
+    """Phase 25 (c): the flagship's served shape (B=1, T=120, the bench's
+    references and 70%/70% loss), eagerly, solver "admm", float32, 60+60
+    iterations with the residual early exit (``early_tol=1e-3``) on phase
+    2, and the same with the fixed budget: chunks a step and ms a step of
+    each; gates: feasible, the tube invariant at every step, the early-exit
+    trajectory within ``DX_PARITY`` of the port's float64 CPU run under
+    the same ``early_tol``."""
+    from rtmpc_tpu_torch.ops.qp import admm_solve
+    from rtmpc_tpu_torch.parallel import make_batched_rollout
+    theta, gamma, w = _inputs(1, dev, seed=25)
+    refs = _bench_refs(1, dev, torch.float32)
+    x0 = torch.zeros(1, 2, dtype=torch.float32, device=dev)
+    kw = dict(iters=ITERS, iters2=ITERS2, alpha=ALPHA, rho2_scale=RHO2_SCALE)
+    runs = {}
+    for label, early in (("early exit", dict(early_tol=EARLY_TOL)),
+                         ("fixed 60+60", {})):
+        arrays, cfg = setup.to_device(torch.float32, dev, solver="admm",
+                                      **kw, **early)
+        roll = make_batched_rollout(arrays, cfg, T)
+        roll(x0, refs, w, theta, gamma)           # warm-up
+        admm_solve.early_calls = admm_solve.chunks = 0
+        admm_solve.max_chunks = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, outs = roll(x0, refs, w, theta, gamma)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / T
+        if early:
+            _require(admm_solve.early_calls == T, admm_solve.early_calls)
+            chunks = (admm_solve.chunks / T, admm_solve.max_chunks)
+        else:
+            chunks = (ITERS2 / 25, ITERS2 / 25)
+        print("phase 25 (c) %s: %.4f ms a step eagerly at B=1, phase-2 "
+              "chunks of 25 a step mean %.3f max %g"
+              % (label, ms, chunks[0], chunks[1]))
+        _require(bool(carry.feasible.all()) and bool(outs.feasible.all()))
+        xs = torch.cat([x0[:, None], outs.x[:, :-1]], dim=1)
+        viol = ((xs - outs.x_nom) @ arrays.Hz.T - arrays.hz).amax().item()
+        _require(viol <= TUBE_TOL, (label, viol))
+        runs[label] = dict(outs=outs, ms=ms, chunks=chunks, viol=viol)
+    a64, c64 = setup.to_device(torch.float64, "cpu", solver="admm", **kw,
+                               early_tol=EARLY_TOL)
+    _, o64 = make_batched_rollout(a64, c64, T)(
+        x0.double().cpu(), refs.double().cpu(), w.cpu(), theta.cpu(),
+        gamma.cpu())
+    dx = _max_err(runs["early exit"]["outs"].x, o64.x)
+    print("phase 25 (c): early exit against float64 on the CPU (same "
+          "early_tol): max |dx| %.3e (bar %g); tube invariant max %.3e"
+          % (dx, DX_PARITY, runs["early exit"]["viol"]))
+    _require(dx <= DX_PARITY, dx)
+    return runs
+
+
+def phase_hybrid_and_early_exit(sc, setups, setup, dev, fig3d_f64):
+    """Phase 25: (a) ``phase_hybrid_sweep``; (b) Fig. 3d under the hybrid
+    captured whole, beside phase 20's float64 numbers; (c)
+    ``phase_early_exit_b1``."""
+    t0 = time.perf_counter()
+    phase_hybrid_sweep(sc, setups, dev)
+    print("phase 25 (a) took %.1f s" % (time.perf_counter() - t0))
+    t1 = time.perf_counter()
+    st_h, (cap, inst) = phase_fig3d_ip(sc, setups, dev, solver="ip_hybrid",
+                                       n_ticks=T_FIG3D_HYB)
+    (st64, (cap64, inst64)) = fig3d_f64
+    for label, st, c, i in (("ip_hybrid", st_h, cap, inst),
+                            ("ip_riccati float64 (phase 20)", st64, cap64,
+                             inst64)):
+        print("phase 25 (b) Fig. 3d %s, %d ticks: p50 %.4f p99 %.4f max "
+              "%.4f ms a tick; capture %.2f s, instantiation %.2f s (%s)"
+              % (label, st["n_solves"], st["median_ms"], st["p99_ms"],
+                 st["max_ms"], c, i, torch.cuda.get_device_name(0)))
+    print("phase 25 (b) took %.1f s" % (time.perf_counter() - t1))
+    t1 = time.perf_counter()
+    phase_early_exit_b1(setup, dev)
+    print("phase 25 (c) took %.1f s" % (time.perf_counter() - t1))
+    print("phase 25 took %.1f s" % (time.perf_counter() - t0))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; this smoke run needs a GPU")
@@ -1509,7 +1742,7 @@ def main():
     # Fig. 3d through the captured interior point, the remaining apps and
     # the condensed QPs
     t0 = time.perf_counter()
-    phase_fig3d_ip(sc, fig3a, dev)
+    fig3d_f64 = phase_fig3d_ip(sc, fig3a, dev)
     print("phase 20 took %.1f s" % (time.perf_counter() - t0))
     t0 = time.perf_counter()
     phase_estimate_w(sc, dev)
@@ -1547,6 +1780,9 @@ def main():
         "%d on each of %d gloo ranks (spawned processes, rank r on card r "
         "modulo the cards)" % (2 * T, DP_RANKS))
     print("phase 24 took %.1f s" % (time.perf_counter() - t0))
+
+    # the hybrid interior point and the ADMM's early exit
+    phase_hybrid_and_early_exit(sc, fig3a, setup, dev, fig3d_f64)
     _require("jax" not in sys.modules)
 
     print("chip_smoke.py took %.1f s" % (time.perf_counter() - t_start))

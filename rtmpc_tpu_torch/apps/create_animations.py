@@ -3,7 +3,8 @@ of ``rtmpc_tpu/apps/create_animations.py``).
 
     python3 -m rtmpc_tpu_torch.apps.create_animations --device cuda \\
         [--solver ip_riccati|ip|cuda|admm] [--dtype float64] \\
-        [--loss-prob 0.4] [--quick] [--seed 0] [--no-figures]
+        [--loss-prob 0.4] [--quick] [--seed 0] [--no-figures] \\
+        [--strip-dir DIR]
 
 Equivalent of ``Results/create_animations.py``: one rollout of each arm on
 the nonlinear cartpole at loss probability ``--loss-prob``, the tube arm
@@ -14,7 +15,8 @@ each as one batch-1 rollout on the device (``run``); the JAX app's checks
 each trajectory is drawn as an animated GIF and as a strip of 8 of its
 frames (PNG), under ``results/rtmpc_tpu_torch/`` (matplotlib and PIL;
 ``--no-figures`` skips them; the PyBullet renderer of the reference's
-``cartpole.py:48-79`` becomes a matplotlib cart-and-pole drawing).
+``cartpole.py:48-79`` becomes a matplotlib cart-and-pole drawing);
+``--strip-dir`` writes each arm's strip to that directory too.
 
 The draws (loss masks, then disturbances, which the nonlinear plant does
 not use) come from a ``torch.Generator`` at ``--seed``; ``run`` takes
@@ -42,6 +44,9 @@ QUICK_T = 60
 def parse_args(argv=None):
     p = add_figure_args(make_parser(__doc__))
     p.add_argument("--loss-prob", type=float, default=0.4)
+    p.add_argument("--strip-dir", default=None,
+                   help="also write each arm's strip of frames (PNG) to "
+                        "this directory")
     return p.parse_args(argv)
 
 
@@ -134,9 +139,28 @@ def render_strip(frames: list, path: str, n: int = 8) -> str:
     for im in imgs:
         strip.paste(im, (xoff, 0))
         xoff += im.width
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     strip.save(path)
     print(f"[strip] {path} ({n} frames)")
     return path
+
+
+def write_figures(args, traj: dict, every: int = 2) -> list:
+    """Each arm's GIF and strip under ``results_dir()``, and its strip
+    under ``args.strip_dir`` too where that is set; ``traj`` by arm as
+    ``run`` returns it.  Returns the paths written."""
+    Th = cartpole_scenario().Th
+    paths = []
+    for arm, tr in traj.items():
+        name = f"animation_{arm}_p{args.loss_prob:.1f}"
+        stem = os.path.join(results_dir(), name)
+        frames = render_gif(tr, Th, stem + ".gif",
+                            f"{arm} MPC, p={args.loss_prob}", every=every)
+        paths += [stem + ".gif", render_strip(frames, stem + "_strip.png")]
+        if args.strip_dir:
+            paths.append(render_strip(frames, os.path.join(
+                args.strip_dir, name + "_strip.png")))
+    return paths
 
 
 def main(argv=None) -> int:
@@ -144,13 +168,7 @@ def main(argv=None) -> int:
     figures = figures_on(args, "PIL")
     out = run(args)
     if figures:
-        Th = cartpole_scenario().Th
-        for arm, traj in out["traj"].items():
-            stem = os.path.join(results_dir(), f"animation_{arm}_p"
-                                f"{args.loss_prob:.1f}")
-            frames = render_gif(traj, Th, stem + ".gif",
-                                f"{arm} MPC, p={args.loss_prob}")
-            render_strip(frames, stem + "_strip.png")
+        write_figures(args, out["traj"])
     return 0 if out["ok"] else 1
 
 

@@ -2,8 +2,8 @@
 of ``rtmpc_tpu/apps/results_linear.py``).
 
     python3 -m rtmpc_tpu_torch.apps.results_linear --device cuda \\
-        [--solver ip_riccati|ip|cuda|admm] [--dtype float64] [--n-mc 20] \\
-        [--quick] [--seed 0] [--draws PATH] [--checkpoint PATH] \\
+        [--solver ip_riccati|ip_hybrid|ip|cuda|admm] [--dtype float64] \\
+        [--n-mc 20] [--quick] [--seed 0] [--draws PATH] [--checkpoint PATH] \\
         [--n-chunks 1] [--save-json PATH] [--no-figures]
 
 Robust tube tracking MPC (RT-MPC: tube tracking, consistent actuator)
@@ -42,7 +42,8 @@ import numpy as np
 import torch
 
 from .common import (DATA_DIR, FULL_PROBS, REPO_ROOT, RESULTS_ADMM_ITERS,
-                     SEED0_SOURCE, add_figure_args, add_sweep_args,
+                     RESULTS_SOLVERS, SEED0_SOURCE, add_figure_args,
+                     add_sweep_args,
                      boxplot_figure, cartpole_controllers, check, device_name,
                      figures_on, load_compare_linear, make_parser, resolve,
                      run_arms, save_summary_json, solve_time_stats,
@@ -56,8 +57,8 @@ QUICK_PROBS = [0.0, 0.3, 0.6, 0.9]
 
 
 def parse_args(argv=None):
-    return add_figure_args(add_sweep_args(make_parser(__doc__))).parse_args(
-        argv)
+    return add_figure_args(add_sweep_args(make_parser(
+        __doc__, solvers=RESULTS_SOLVERS))).parse_args(argv)
 
 
 def run(args, setups=None) -> dict:
@@ -172,8 +173,8 @@ def run(args, setups=None) -> dict:
                         compared)
         else:
             print(f"[info] compare_linear {'passes' if compared else 'fails'}"
-                  " (not gated: the ADMM does not reach trajectory parity "
-                  "on the cartpole)")
+                  " (gated under float64 ip_riccati alone: the ADMM does "
+                  "not reach trajectory parity on the cartpole)")
         tr_inf = [r["track_infeasible"] for r in rows]
         with open(TRUTH) as f:
             tr_truth = [r["track_infeasible"] for r in json.load(f)["rows"]]

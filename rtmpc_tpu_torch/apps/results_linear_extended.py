@@ -2,8 +2,8 @@
 of ``rtmpc_tpu/apps/results_linear_extended.py``, paper Section IV.F).
 
     python3 -m rtmpc_tpu_torch.apps.results_linear_extended --device cuda \\
-        [--solver ip_riccati|ip|cuda|admm] [--dtype float64] [--n-mc 20] \\
-        [--quick] [--seed 0] [--draws PATH] [--checkpoint PATH] \\
+        [--solver ip_riccati|ip_hybrid|ip|cuda|admm] [--dtype float64] \\
+        [--n-mc 20] [--quick] [--seed 0] [--draws PATH] [--checkpoint PATH] \\
         [--n-chunks 1] [--save-json PATH] [--no-figures]
 
 Adds the ExtendedTubeTrackingMPC arm (two QPs selected by the previous
@@ -34,8 +34,9 @@ import os
 
 import numpy as np
 
-from .common import (REPO_ROOT, add_figure_args, add_sweep_args,
-                     boxplot_figure, check, make_parser, run_labelled_sweep,
+from .common import (REPO_ROOT, RESULTS_SOLVERS, add_figure_args,
+                     add_sweep_args, boxplot_figure, check, make_parser,
+                     run_labelled_sweep,
                      save_summary_json, solve_time_stats,
                      solvetime_hist_figure)
 
@@ -49,8 +50,8 @@ ARMS = (("RT-MPC", "tube", "consistent", None),
 
 
 def parse_args(argv=None):
-    return add_figure_args(add_sweep_args(make_parser(__doc__))).parse_args(
-        argv)
+    return add_figure_args(add_sweep_args(make_parser(
+        __doc__, solvers=RESULTS_SOLVERS))).parse_args(argv)
 
 
 def run(args, setups=None, arms=None) -> dict:

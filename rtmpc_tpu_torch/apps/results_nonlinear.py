@@ -2,7 +2,8 @@
 of ``rtmpc_tpu/apps/results_nonlinear.py``).
 
     python3 -m rtmpc_tpu_torch.apps.results_nonlinear --device cuda \\
-        [--extended] [--solver ip_riccati|ip|cuda|admm] [--dtype float64] \\
+        [--extended] [--solver ip_riccati|ip_hybrid|ip|cuda|admm] \\
+        [--dtype float64] \\
         [--n-mc 20] [--quick] [--seed 0] [--draws PATH] \\
         [--checkpoint PATH] [--n-chunks 1] [--save-json PATH] \\
         [--no-figures]
@@ -37,8 +38,9 @@ import os
 import numpy as np
 
 from ..models.plants import cartpole_zoh_step
-from .common import (REPO_ROOT, add_figure_args, add_sweep_args,
-                     boxplot_figure, check, make_parser, run_labelled_sweep,
+from .common import (REPO_ROOT, RESULTS_SOLVERS, add_figure_args,
+                     add_sweep_args, boxplot_figure, check, make_parser,
+                     run_labelled_sweep,
                      save_summary_json, trajectory_figure)
 from .scenarios import cartpole_scenario
 
@@ -65,7 +67,8 @@ def build_nonlinear_plant_step(sc, method: str = "semi_implicit_euler"):
 
 
 def parse_args(argv=None):
-    p = add_figure_args(add_sweep_args(make_parser(__doc__)))
+    p = add_figure_args(add_sweep_args(make_parser(
+        __doc__, solvers=RESULTS_SOLVERS)))
     p.add_argument("--extended", action="store_true",
                    help="add the ExtendedTubeTrackingMPC arm "
                         "(results_nonlinear_system_with_extendedMPC)")

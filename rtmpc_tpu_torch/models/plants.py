@@ -1,6 +1,7 @@
 """Plant models (counterpart of ``rtmpc_tpu/models/plants.py``).
 
-The cartpole's parameters and its continuous-time linearization (NumPy;
+The linear plant update ``x+ = A x + B u + w``; the cartpole's
+parameters and its continuous-time linearization (NumPy;
 the linearized Results scenario is built from them), and the nonlinear
 cartpole itself: the analytic rigid-body ODE, one physics step by
 semi-implicit Euler (the PyBullet scheme of the reference's plant) or RK4,
@@ -19,8 +20,16 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["CartpoleParams", "cartpole_derivatives", "cartpole_step",
-           "cartpole_linearized", "cartpole_zoh_step"]
+__all__ = ["linear_plant_step", "CartpoleParams", "cartpole_derivatives",
+           "cartpole_step", "cartpole_linearized", "cartpole_zoh_step"]
+
+
+def linear_plant_step(A: torch.Tensor, B: torch.Tensor, x: torch.Tensor,
+                      u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x+ = A x + B u + w``, the per-step plant update of every linear
+    benchmark (``Example_of_Tube_Tracking_MPC_Over_Lossy_Network.py:152``),
+    batch-explicit: ``x``/``w`` ``(B, nx)``, ``u`` ``(B, nu)``."""
+    return x @ A.T + u @ B.T + w
 
 
 @dataclasses.dataclass(frozen=True)

@@ -50,8 +50,11 @@ __all__ = ["MPCSetup", "ControllerArrays", "ControllerConfig",
 # "admm": batched PyTorch ADMM (ops/qp.py); "cuda": the fused CUDA kernel
 # (ops/qp_cuda.py), which runs its plain PyTorch version on CPU tensors;
 # "ip": the dense interior point (ops/ip.py); "ip_riccati": the structured
-# interior point (ops/ip_riccati.py).
-SOLVERS = ("admm", "cuda", "ip", "ip_riccati")
+# interior point (ops/ip_riccati.py); "ip_hybrid": the structured interior
+# point in float32, then a short float64 phase from its iterate.
+SOLVERS = ("admm", "cuda", "ip", "ip_riccati", "ip_hybrid")
+# the solvers that run the structured interior point
+RIC_SOLVERS = ("ip_riccati", "ip_hybrid")
 
 # The JAX package places the [xt | zt] output slots of its composites at
 # 128-lane boundaries for the TPU (rtmpc_tpu/ops/qp.py:272-286).
@@ -100,7 +103,9 @@ class MPCSetup:
                   alpha: float = 1.6, solver: str = "admm",
                   ip_iters: int = 25, polish: bool = False,
                   probe_thetas: Optional[np.ndarray] = None,
-                  condensed: bool = False):
+                  condensed: bool = False, ip_hybrid_iters: int = 12,
+                  early_tol: Optional[float] = None,
+                  early_dual_factor: float = 25.0, check_every: int = 25):
         """Freeze into ``(ControllerArrays, ControllerConfig)``.
 
         ``solver`` is one of ``SOLVERS``.  The ADMM solvers get the JAX
@@ -113,7 +118,16 @@ class MPCSetup:
         structured IP's (``arrays.ric``) from the uncondensed template;
         both run at most ``ip_iters`` iterations a solve and build no ADMM
         spec (``arrays.admm`` is None); ``polish`` does nothing there, as
-        in the JAX package.
+        in the JAX package.  Solver "ip_hybrid" runs the structured IP at
+        most ``ip_iters`` iterations in float32, then at most
+        ``ip_hybrid_iters`` in float64 (``ip_riccati_solve_hybrid``): its
+        ``arrays.ric`` is float64 whatever ``dtype`` is, as in the JAX
+        package.
+
+        ``early_tol``: the ADMM's residual early exit (``admm_solve``), with
+        ``early_dual_factor`` and ``check_every``, on the last ADMM phase
+        of a step.  Solver "cuda" refuses it (``ValueError``): the kernel
+        runs a fixed count, as the JAX package's Pallas path does.
 
         An extended setup (``template_pr`` set) also gets the
         packet-received QP's specs, ``admm_pr``/``admm2_pr``, ``ip_pr`` or
@@ -131,10 +145,15 @@ class MPCSetup:
             raise NotImplementedError(
                 f"solver {solver!r} has no counterpart in the port (its "
                 f"solvers: {SOLVERS}; the Pallas kernel's is 'cuda')")
-        if condensed and solver == "ip_riccati":
-            raise ValueError("solver 'ip_riccati' needs the uncondensed "
+        if condensed and solver in RIC_SOLVERS:
+            raise ValueError(f"solver {solver!r} needs the uncondensed "
                              "template (its Riccati sweep is over the stage "
                              "variables)")
+        if solver == "cuda" and early_tol is not None:
+            raise ValueError("solver 'cuda' has no early exit: the kernel "
+                             "runs a fixed iteration count (as the JAX "
+                             "package's Pallas path); use solver 'admm' "
+                             "for early_tol")
         tmpl, tmpl_pr = self.template, self.template_pr
         if condensed:
             tmpl = condense_template(tmpl)
@@ -149,9 +168,10 @@ class MPCSetup:
             if solver == "ip":
                 return None, None, prepare_ip(t, dtype=dtype,
                                               device=device), None
-            if solver == "ip_riccati":
+            if solver in RIC_SOLVERS:
                 return None, None, None, prepare_ip_riccati(
-                    t, dtype=dtype, device=device)
+                    t, dtype=(torch.float64 if solver == "ip_hybrid"
+                              else dtype), device=device)
             spec = prepare_admm(
                 t, alpha=alpha, dtype=dtype, device=device,
                 tune_iters=max(100, min(iters + iters2, 600)),
@@ -193,6 +213,9 @@ class MPCSetup:
         cfg = _config(self.nx, self.nu, self.N, self.template, iters, iters2,
                       solver, ip_iters, polish=polish,
                       extended=self.template_pr is not None)
+        cfg = dataclasses.replace(
+            cfg, ip_hybrid_iters=ip_hybrid_iters, early_tol=early_tol,
+            early_dual_factor=early_dual_factor, check_every=check_every)
         if condensed:
             cfg = dataclasses.replace(
                 cfg, n_red=tmpl.n,
@@ -210,7 +233,8 @@ class ControllerArrays(NamedTuple):
     K_plant: torch.Tensor      # (nu, nx) ancillary gain
     Hz: torch.Tensor           # (mz_p, nx) tube H-rep (padded)
     hz: torch.Tensor           # (mz_p,)
-    ric: Optional[RiccatiIPSpec] = None   # structured IP (solver ip_riccati)
+    # structured IP (solvers ip_riccati, ip_hybrid: float64 under the hybrid)
+    ric: Optional[RiccatiIPSpec] = None
     # a condensed controller's reduced -> full maps, z_full = S_rec v
     # (``(n, n_red)``; None when the templates are full)
     S_rec: Optional[torch.Tensor] = None
@@ -240,13 +264,21 @@ class ControllerConfig:
     u_off: int                 # offset of u_0 in the QP variable layout
     xbar_off: int              # offset of the artificial steady state xbar
     ubar_off: int              # offset of ubar (both -1 without tracking)
-    ip_iters: int = 25         # interior-point iterations (ip, ip_riccati)
+    # interior-point iterations (ip, ip_riccati; the float32 phase of
+    # ip_hybrid)
+    ip_iters: int = 25
+    ip_hybrid_iters: int = 12  # float64 iterations of ip_hybrid
     extended: bool = False     # two QPs picked by the previous step's gamma
     polish: bool = False       # polish the last ADMM phase's primal
     # variables of the condensed QP (the packet-received one's); 0: the
     # QPs are full (``n`` is the full layout's either way)
     n_red: int = 0
     n_red_pr: int = 0
+    # the ADMM's residual early exit on a step's last phase (admm_solve):
+    # None is the fixed count; the JAX package's defaults
+    early_tol: Optional[float] = None
+    early_dual_factor: float = 25.0
+    check_every: int = 25
 
 
 def _config(nx, nu, N, tmpl, iters, iters2, solver, ip_iters, polish=False,

@@ -25,11 +25,14 @@ initial tube, the terminal set) are kept as one flat ``(B, m_i)`` tensor in
 that order; ``_split`` gives the per-group views.
 
 Ported: ``prepare_ip_riccati``, the unrolled pivoted LU, the Riccati
-factor and solve, the cold-start ``ip_riccati_solve`` (with the
-iterative refinement the f32 and free-initial-state solves use) and
-``init_ip_state``.  Not ported: the f32->f64 hybrid (the GPU computes in
-float64 natively) and the ``state0`` warm starts (the rollout engine
-solves cold every step).
+factor and solve, ``ip_riccati_solve`` (with the iterative refinement
+the f32 and free-initial-state solves use, and the ``state0`` warm
+starts: ``"resume"`` continues the same problem, ``"shifted"`` carries an
+iterate across a changed one), ``init_ip_state`` and the mixed-precision
+``ip_riccati_solve_hybrid`` (float32 path following, then a short float64
+phase from its iterate: the JAX package's ``solver="ip_hybrid"``).
+``ip_state_from_jax`` turns the JAX package's per-instance interior
+state into the port's flat batched one.
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ from ..tree import tree_to
 from .assembly import QPTemplate
 
 __all__ = ["RiccatiIPSpec", "IPSolution", "prepare_ip_riccati",
-           "ip_riccati_solve", "init_ip_state"]
+           "ip_riccati_solve", "ip_riccati_solve_hybrid", "init_ip_state",
+           "ip_state_from_jax"]
 
 
 # ---------------------------------------------------------------------------
@@ -474,14 +478,25 @@ def _where(mask, new, old):
 
 
 def ip_riccati_solve(spec: RiccatiIPSpec, theta: torch.Tensor, N: int,
-                     iters: int = 25,
-                     early_exit: Optional[bool] = None) -> IPSolution:
-    """Mehrotra predictor-corrector with the Riccati/arrowhead KKT solve,
-    cold start, for a batch ``theta (B, ntheta)``.
+                     iters: int = 25, state0=None, want_state: bool = False,
+                     warm: str = "resume",
+                     early_exit: Optional[bool] = None):
+    """Mehrotra predictor-corrector with the Riccati/arrowhead KKT solve
+    for a batch ``theta (B, ntheta)``.
 
     Returns the primal in the template layout ``[x_0..x_N | u_0..u_{N-1}
     | xbar ubar]`` and the residuals in the scaled metric, like the JAX
     package's ``ip_riccati_solve`` under ``vmap``.
+    ``state0``: a warm interior state ``(x, u, w, y, mu_ss, lam, s)`` with
+    ``lam``/``s`` flat ``(B, m_i)`` (``init_ip_state``'s layout, any float
+    dtype: cast to the spec's); None starts cold.  ``warm="resume"``
+    continues the same problem (the hybrid's float32 -> float64 hand-off):
+    the state is kept, ``lam`` and ``s`` floored at 1e-12 (float64) or
+    1e-7 (float32).  ``warm="shifted"`` carries an iterate across a changed
+    problem: primal and duals kept, ``lam`` clipped to ``[1e-4, 1e4]``,
+    the slacks rebuilt from the new parameters as ``max(h - A z, 1e-4)``.
+    ``want_state=True`` returns ``(sol, state)`` with the final (best
+    picked) iterate.
     ``early_exit``: end the loop once no lane is active, which reads the
     device every iteration; None (the default) means yes unless a CUDA
     graph is being captured, where that read cannot be (the loop then runs
@@ -681,24 +696,44 @@ def ip_riccati_solve(spec: RiccatiIPSpec, theta: torch.Tensor, N: int,
         return torch.cat([p.abs().flatten(1) for p in parts]
                          + [zeros(Bsz, 1)], 1).amax(1)
 
-    # ----- initial point: equality-feasible regularized minimizer ----------
-    eye_x = torch.eye(nx, **kw)
-    Qh0 = (spec.Qx + eye_x).expand(Bsz, N, nx, nx)
-    Rh0 = (spec.Ru + torch.eye(nu, **kw)).expand(Bsz, N, nu, nu)
-    pack0 = finish_factor(Qh0, Rh0, (spec.QN + eye_x).expand(Bsz, nx, nx),
-                          spec.CNw.expand(Bsz, nx, nw),
-                          (spec.Hww + torch.eye(nw, **kw)).expand(Bsz, nw,
-                                                                  nw))
-    pack0 = pack0 + (zeros(Bsz, mi),)
-    # refine=0: the start system is deliberately regularized (cost + I)
-    x, u, w, _, _ = solve_newton(
-        pack0, zeros(Bsz, mi), zeros(Bsz, N, nx), zeros(Bsz, N, nu),
-        zeros(Bsz, nx), qw, zeros(Bsz, N, nx), zeros(Bsz, nss), -b0,
-        refine=0)
-    s = torch.clamp_min(h - ineq_products(x, u, w), 1.0)
-    lam = torch.ones(Bsz, mi, **kw)
-    y = zeros(Bsz, N, nx)
-    mu_ss = zeros(Bsz, nss)
+    if state0 is None:
+        # ----- initial point: equality-feasible regularized minimizer ------
+        eye_x = torch.eye(nx, **kw)
+        Qh0 = (spec.Qx + eye_x).expand(Bsz, N, nx, nx)
+        Rh0 = (spec.Ru + torch.eye(nu, **kw)).expand(Bsz, N, nu, nu)
+        pack0 = finish_factor(Qh0, Rh0,
+                              (spec.QN + eye_x).expand(Bsz, nx, nx),
+                              spec.CNw.expand(Bsz, nx, nw),
+                              (spec.Hww + torch.eye(nw, **kw)).expand(
+                                  Bsz, nw, nw))
+        pack0 = pack0 + (zeros(Bsz, mi),)
+        # refine=0: the start system is deliberately regularized (cost + I)
+        x, u, w, _, _ = solve_newton(
+            pack0, zeros(Bsz, mi), zeros(Bsz, N, nx), zeros(Bsz, N, nu),
+            zeros(Bsz, nx), qw, zeros(Bsz, N, nx), zeros(Bsz, nss), -b0,
+            refine=0)
+        s = torch.clamp_min(h - ineq_products(x, u, w), 1.0)
+        lam = torch.ones(Bsz, mi, **kw)
+        y = zeros(Bsz, N, nx)
+        mu_ss = zeros(Bsz, nss)
+    elif warm == "resume":
+        # same-problem continuation: keep the state, floor away exact
+        # zeros left by a lower-precision phase
+        floor = 1e-12 if dt == torch.float64 else 1e-7
+        x, u, w, y, mu_ss, lam, s = (a.to(**kw) for a in state0)
+        lam = torch.clamp_min(lam, floor)
+        s = torch.clamp_min(s, floor)
+    elif warm == "shifted":
+        # across a changed problem: keep the primal and dual iterate, but
+        # rebuild the slacks from the new parameters and re-center the
+        # duals (converged slacks carried verbatim pin the first steps at
+        # ~0 on the new problem, as the JAX package measured)
+        floor = 1e-4
+        x, u, w, y, mu_ss, lam, _ = (a.to(**kw) for a in state0)
+        s = torch.clamp_min(h - ineq_products(x, u, w), floor)
+        lam = lam.clamp(floor, 1.0 / floor)
+    else:
+        raise ValueError(f"warm must be 'resume' or 'shifted', not {warm!r}")
 
     # freeze floors (see the JAX package): barrier and residual bars
     if dt == torch.float64:
@@ -794,7 +829,10 @@ def ip_riccati_solve(spec: RiccatiIPSpec, theta: torch.Tensor, N: int,
     sw = torch.cat([spec.Sx, spec.Su])[:nw]
     z = torch.cat([(x * spec.Sx).flatten(1), (u * spec.Su).flatten(1),
                    w * sw], 1)
-    return IPSolution(z_primal=z, r_prim=r_prim, r_dual=r_dual, gap=gap)
+    sol = IPSolution(z_primal=z, r_prim=r_prim, r_dual=r_dual, gap=gap)
+    if want_state:
+        return sol, (x, u, w, y, mu_ss, lam, s)
+    return sol
 
 
 ip_riccati_solve.iterations = 0
@@ -816,3 +854,67 @@ def init_ip_state(spec: RiccatiIPSpec, N: int, batch: int,
             torch.zeros(batch, N, nx, **kw), torch.zeros(batch, nss, **kw),
             torch.ones(batch, mi, **kw), torch.ones(batch, mi, **kw))
 
+
+
+def ip_riccati_solve_hybrid(spec: RiccatiIPSpec, theta: torch.Tensor, N: int,
+                            iters32: int = 25, iters64: int = 8,
+                            state0=None, want_state: bool = False,
+                            early_exit: Optional[bool] = None):
+    """Mixed-precision accuracy mode (the JAX package's
+    ``ip_riccati_solve_hybrid``): up to ``iters32`` float32 iterations on a
+    cast-down copy of ``spec`` (warm ``"shifted"`` from ``state0``, cold
+    without it), then up to ``iters64`` float64 iterations resumed from
+    that iterate.  The scalings are the same in both copies, so the
+    interior state transfers directly.  ``spec`` must be the float64 spec
+    (``ValueError`` otherwise).  ``early_exit`` reaches both phases: under
+    CUDA graph capture each runs its whole budget.
+
+    ``ip_riccati_solve_hybrid.iterations32`` and ``.iterations64`` count
+    each phase's iterations (they are also in ``ip_riccati_solve``'s
+    counts)."""
+    if spec.A.dtype != torch.float64:
+        raise ValueError("ip_riccati_solve_hybrid needs the float64 spec "
+                         f"(got {spec.A.dtype}); phase 1 casts it down")
+    spec32 = spec._make(a.to(torch.float32) for a in spec)
+    before = ip_riccati_solve.iterations
+    _, st = ip_riccati_solve(spec32, theta.to(torch.float32), N,
+                             iters=iters32, state0=state0, warm="shifted",
+                             want_state=True, early_exit=early_exit)
+    mid = ip_riccati_solve.iterations
+    out = ip_riccati_solve(spec, theta.to(torch.float64), N, iters=iters64,
+                           state0=st, warm="resume", want_state=want_state,
+                           early_exit=early_exit)
+    ip_riccati_solve_hybrid.iterations32 += mid - before
+    ip_riccati_solve_hybrid.iterations64 += ip_riccati_solve.iterations - mid
+    return out
+
+
+ip_riccati_solve_hybrid.iterations32 = 0
+ip_riccati_solve_hybrid.iterations64 = 0
+
+
+def ip_state_from_jax(state, N: int, dtype: Optional[torch.dtype] = None,
+                      device="cpu"):
+    """The JAX package's interior state -- ``(x, u, w, y, mu_ss, lam, s)``
+    with ``lam``/``s`` each a tuple of its 4 inequality groups, as numpy
+    arrays of one instance (``x (N+1, nx)``) or stacked (``x (B, N+1,
+    nx)``) -- as the port's batched state with ``lam``/``s`` flat ``(B,
+    m_i)`` in the group order of ``init_ip_state``.  ``dtype`` None keeps
+    the arrays' own."""
+    x, u, w, y, mu_ss, lam, s = state
+    x = np.asarray(x)
+    one = x.ndim == 2
+    if x.shape[-2] != N + 1:
+        raise ValueError(f"x has {x.shape[-2]} stages, not N + 1 = {N + 1}")
+
+    def t(a):
+        a = np.asarray(a)
+        if one:
+            a = a[None]
+        return torch.tensor(np.array(a), device=device, dtype=dtype)
+
+    def flat(groups):
+        return torch.cat([t(g).reshape(t(x).shape[0], -1) for g in groups],
+                         1)
+
+    return (t(x), t(u), t(w), t(y), t(mu_ss), flat(lam), flat(s))

@@ -18,8 +18,9 @@ dual infeasibility test, batched.
 batched: one regularised KKT solve per instance on its detected active
 set, kept only where it lowers the KKT residual; ``admm_solve(...,
 polish=True)`` and the rollout engine (``cfg.polish``) apply it after the
-last ADMM phase.  The residual-based early exit (``early_tol``) is not
-ported: asking for it raises ``NotImplementedError``.
+last ADMM phase.  ``admm_solve(..., early_tol=...)`` is the JAX
+package's residual early exit under ``vmap``: chunks of ``check_every``
+iterations, each lane frozen once its scaled residuals are below the bars.
 """
 
 from __future__ import annotations
@@ -294,36 +295,90 @@ def admm_solve(spec: ADMMSpec, theta: torch.Tensor,
                state: Optional[ADMMState] = None,
                iters: int = 100,
                polish: bool = False,
-               early_tol: Optional[float] = None) -> ADMMSolution:
-    """Fixed-count batched solve: ``theta`` is ``(B, ntheta)``, the state
-    leaves ``(B, n_p)`` / ``(B, m_p)``; residuals come back ``(B,)``.
+               early_tol: Optional[float] = None,
+               early_dual_factor: float = 25.0,
+               check_every: int = 25,
+               early_exit: Optional[bool] = None) -> ADMMSolution:
+    """Batched solve: ``theta`` is ``(B, ntheta)``, the state leaves
+    ``(B, n_p)`` / ``(B, m_p)``; residuals come back ``(B,)``.
 
     The iteration is ``_admm_body`` of the JAX package with ``A' v``
-    written ``v @ A`` for a batch of row vectors ``v``.  ``polish=True``
-    polishes the returned primal and residuals (``apply_polish``); the state
-    stays the raw ADMM iterate."""
-    if early_tol is not None:
-        raise NotImplementedError("admm_solve: early_tol is not ported yet")
+    written ``v @ A`` for a batch of row vectors ``v``.  Without
+    ``early_tol`` it runs ``iters`` iterations.  With it, the JAX
+    package's residual early exit under ``vmap``: the loop runs in chunks
+    of ``check_every`` iterations while ``iters`` is not spent (so up to
+    ``check_every * ceil(iters / check_every)`` iterations); after each
+    chunk a lane is done once ``max|As x - z| < early_tol`` and ``max|Ps x
+    + q + As' y| < early_tol * early_dual_factor`` (scaled), and a done
+    lane keeps its state from then on (``torch.where``, as the vmapped
+    ``while_loop`` selects).  ``early_exit``: end the loop once every lane
+    is done, which reads the device once a chunk; None (the default) means
+    yes unless a CUDA graph is being captured, where the loop runs the
+    whole budget to the same iterate.  ``admm_solve.early_calls``,
+    ``.chunks`` and ``.max_chunks`` count the early-exit calls, their
+    chunks and the most chunks of one call; ``.lane_chunks`` holds the
+    last such call's chunks per lane ``(B,)``.
+
+    ``polish=True`` polishes the returned primal and residuals
+    (``apply_polish``); the state stays the raw ADMM iterate."""
     theta = theta.to(spec.q0.dtype)
     if state is None:
         state = init_admm_state(spec, theta.shape[0])
     q, l, u = problem_vectors(spec, theta)
     sigma, alpha = spec.sigma, spec.alpha
+
+    def run(x, y, z, n):
+        for _ in range(n):
+            rhs = sigma * x - q + (spec.rho * z - y) @ spec.As
+            xt = rhs @ spec.Kinv.T
+            zt = xt @ spec.As.T
+            x_new = alpha * xt + (1.0 - alpha) * x
+            z_mix = alpha * zt + (1.0 - alpha) * z
+            z_new = torch.minimum(torch.maximum(z_mix + y * spec.rho_inv, l),
+                                  u)
+            y = y + spec.rho * (z_mix - z_new)
+            x, z = x_new, z_new
+        return x, y, z
+
+    def residuals(x, y, z):
+        return ((x @ spec.As.T - z).abs().amax(dim=1),
+                (x @ spec.Ps.T + q + y @ spec.As).abs().amax(dim=1))
+
     x, y, z = state
-    for _ in range(iters):
-        rhs = sigma * x - q + (spec.rho * z - y) @ spec.As
-        xt = rhs @ spec.Kinv.T
-        zt = xt @ spec.As.T
-        x_new = alpha * xt + (1.0 - alpha) * x
-        z_mix = alpha * zt + (1.0 - alpha) * z
-        z_new = torch.minimum(torch.maximum(z_mix + y * spec.rho_inv, l), u)
-        y = y + spec.rho * (z_mix - z_new)
-        x, z = x_new, z_new
-    r_prim = (x @ spec.As.T - z).abs().amax(dim=1)
-    r_dual = (x @ spec.Ps.T + q + y @ spec.As).abs().amax(dim=1)
+    if early_tol is None:
+        x, y, z = run(x, y, z, iters)
+    else:
+        if early_exit is None:
+            early_exit = not (x.device.type == "cuda"
+                              and torch.cuda.is_current_stream_capturing())
+        tol_d = early_tol * early_dual_factor
+        done = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+        lane_chunks = torch.zeros(x.shape[0], dtype=torch.int32,
+                                  device=x.device)
+        it = trips = 0
+        while it < iters and (not early_exit or not bool(done.all())):
+            xn, yn, zn = run(x, y, z, check_every)
+            rp, rd = residuals(xn, yn, zn)
+            go = ~done[:, None]
+            x = torch.where(go, xn, x)
+            y = torch.where(go, yn, y)
+            z = torch.where(go, zn, z)
+            lane_chunks = lane_chunks + (~done).to(torch.int32)
+            done = done | ((rp < early_tol) & (rd < tol_d))
+            it += check_every
+            trips += 1
+        admm_solve.early_calls += 1
+        admm_solve.chunks += trips
+        admm_solve.max_chunks = max(admm_solve.max_chunks, trips)
+        admm_solve.lane_chunks = lane_chunks
+    r_prim, r_dual = residuals(x, y, z)
     sol = ADMMSolution(z_primal=spec.D * x, state=ADMMState(x, y, z),
                        r_prim=r_prim, r_dual=r_dual)
     return apply_polish(spec, theta, sol) if polish else sol
+
+
+admm_solve.early_calls = admm_solve.chunks = admm_solve.max_chunks = 0
+admm_solve.lane_chunks = None
 
 
 # The JAX package's polish default, which every caller keeps.

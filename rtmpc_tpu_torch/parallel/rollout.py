@@ -9,9 +9,12 @@ rollouts at once:
      warm-started from the previous step's iterate (solver "admm": batched
      PyTorch, ``ops/qp.py``; solver "cuda": one launch of the fused kernel
      per phase, ``ops/qp_cuda.py``), its primal polished after the last
-     phase where ``cfg.polish`` is set, or an interior point, cold every
-     step (solver "ip": the dense one, ``ops/ip.py``; solver "ip_riccati":
-     the structured one, ``ops/ip_riccati.py``);
+     phase where ``cfg.polish`` is set, the last phase with the residual
+     early exit where ``cfg.early_tol`` is set (solver "admm"), or an
+     interior point, cold every step (solver "ip": the dense one,
+     ``ops/ip.py``; solver "ip_riccati": the structured one,
+     ``ops/ip_riccati.py``; solver "ip_hybrid": the structured one in
+     float32, then float64 from its iterate);
   2. the packet ``U_t = [u_nom(0..N-1), ubar + K xbar]``;
   3. the estimator records the optimal initial nominal state;
   4. the actuator processes the packet gated by theta;
@@ -36,10 +39,11 @@ A rollout whose QP solution goes non-finite is frozen (state kept,
 rollout also freezes once its QP is certified infeasible for
 ``INFEAS_PERSIST`` consecutive steps: under the ADMM solvers by the
 OSQP-style certificates (``ops/qp.py:infeasibility_certificates``, taken
-with the spec whose rho produced the final state), under "ip_riccati" by a
-final primal residual above 1e-2, under "ip" by none (the dense interior
-point diverges to non-finite values on an infeasible QP, as in the JAX
-engine); an extended controller is certified on the QP it used that step.
+with the spec whose rho produced the final state), under "ip_riccati" and
+"ip_hybrid" by a final primal residual above 1e-2, under "ip" by none (the
+dense interior point diverges to non-finite values on an infeasible QP, as
+in the JAX engine); an extended controller is certified on the QP it used
+that step.
 
 ``make_batched_rollout``'s rollout resumes from a carry it is given, so a
 session advances window by window (``parallel/session.py``).
@@ -54,9 +58,10 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..models.specs import ControllerArrays, ControllerConfig
+from ..models.specs import RIC_SOLVERS, ControllerArrays, ControllerConfig
 from ..ops.ip import ip_solve
-from ..ops.ip_riccati import RiccatiIPSpec, ip_riccati_solve
+from ..ops.ip_riccati import (RiccatiIPSpec, ip_riccati_solve,
+                              ip_riccati_solve_hybrid)
 from ..ops.qp import (ADMMSolution, ADMMState, admm_solve, apply_polish,
                       infeasibility_certificates, init_admm_state)
 from ..ops.qp_cuda import admm_solve_cuda
@@ -153,11 +158,17 @@ def _solve(arrays: ControllerArrays, cfg: ControllerConfig,
 
     Solver "ip_riccati": one cold interior-point solve (the warm state
     passes through) on ``ric`` if given, else on the arrays' spec; solver
-    "ip" likewise on the dense interior point's spec.  Otherwise the
-    two-phase schedule as a state hand-off: phase 1 at ``admm``, phase 2
-    at ``admm2`` (rho scaled) from phase 1's iterate; residuals are phase
-    2's, and with ``cfg.polish`` the primal and residuals are polished on
-    the last phase's spec (``rtmpc_tpu/parallel/rollout.py:407-416``).  A
+    "ip_hybrid" likewise, one cold hybrid solve (``cfg.ip_iters`` float32
+    then ``cfg.ip_hybrid_iters`` float64 iterations), its primal and
+    residuals cast to the engine's dtype
+    (``rtmpc_tpu/parallel/rollout.py:143-170``); solver "ip" one cold
+    solve on the dense interior point's spec.  Otherwise the two-phase
+    schedule as a state hand-off: phase 1 at ``admm``, phase 2 at
+    ``admm2`` (rho scaled) from phase 1's iterate; residuals are phase
+    2's; ``cfg.early_tol`` reaches the last phase only (phase 2, else the
+    single phase, ``rtmpc_tpu/parallel/rollout.py:171-190``); with
+    ``cfg.polish`` the primal and residuals are polished on the last
+    phase's spec (``rtmpc_tpu/parallel/rollout.py:407-416``).  A
     condensed controller's primal comes back in the full layout
     (``_recover``)."""
     if cfg.solver == "ip":
@@ -166,18 +177,29 @@ def _solve(arrays: ControllerArrays, cfg: ControllerConfig,
         return _recover(arrays, cfg, ADMMSolution(
             z_primal=sol.z_primal, state=warm, r_prim=sol.r_prim,
             r_dual=sol.r_dual), pr)
-    if cfg.solver == "ip_riccati":
+    if cfg.solver in RIC_SOLVERS:
         if ric is None:
             ric = arrays.ric_pr if pr else arrays.ric
-        sol = ip_riccati_solve(ric, theta_qp, cfg.N, iters=cfg.ip_iters)
-        return ADMMSolution(z_primal=sol.z_primal, state=warm,
-                            r_prim=sol.r_prim, r_dual=sol.r_dual)
+        if cfg.solver == "ip_hybrid":
+            sol = ip_riccati_solve_hybrid(ric, theta_qp, cfg.N,
+                                          iters32=cfg.ip_iters,
+                                          iters64=cfg.ip_hybrid_iters)
+        else:
+            sol = ip_riccati_solve(ric, theta_qp, cfg.N, iters=cfg.ip_iters)
+        edt = arrays.A.dtype
+        return ADMMSolution(z_primal=sol.z_primal.to(edt), state=warm,
+                            r_prim=sol.r_prim.to(edt),
+                            r_dual=sol.r_dual.to(edt))
     spec, spec2 = ((arrays.admm_pr, arrays.admm2_pr) if pr
                    else (arrays.admm, arrays.admm2))
     solve = _phase_solver(cfg)
-    sol = solve(spec, theta_qp, warm, iters=cfg.iters)
+    early = ({} if cfg.early_tol is None else dict(
+        early_tol=cfg.early_tol, early_dual_factor=cfg.early_dual_factor,
+        check_every=cfg.check_every))
+    sol = solve(spec, theta_qp, warm, iters=cfg.iters,
+                **({} if cfg.iters2 > 0 else early))
     if cfg.iters2 > 0:
-        sol = solve(spec2, theta_qp, sol.state, iters=cfg.iters2)
+        sol = solve(spec2, theta_qp, sol.state, iters=cfg.iters2, **early)
         spec = spec2
     if cfg.polish:
         sol = apply_polish(spec, theta_qp, sol)
@@ -210,7 +232,7 @@ def _certified_infeasible(arrays: ControllerArrays, cfg: ControllerConfig,
         # the dense interior point diverges to non-finite values instead,
         # which the step's finite check catches
         return torch.zeros_like(sol.r_prim, dtype=torch.bool)
-    if cfg.solver == "ip_riccati":
+    if cfg.solver in RIC_SOLVERS:
         # the best-iterate return keeps z finite on infeasible instances:
         # feasible solves land at <= 1e-6, infeasible ones stall >= 1e-2
         return sol.r_prim > 1e-2
@@ -224,10 +246,10 @@ def _certified_infeasible(arrays: ControllerArrays, cfg: ControllerConfig,
 
 def _one_solve_eligible(arrays: ControllerArrays,
                         cfg: ControllerConfig) -> bool:
-    """Whether an extended controller under "ip_riccati" can solve once a
-    step: the two QPs' specs are equal in every field but the initial
-    tube's bounds ``ht0``."""
-    if not (cfg.extended and cfg.solver == "ip_riccati"):
+    """Whether an extended controller under the structured interior point
+    ("ip_riccati", "ip_hybrid") can solve once a step: the two QPs' specs
+    are equal in every field but the initial tube's bounds ``ht0``."""
+    if not (cfg.extended and cfg.solver in RIC_SOLVERS):
         return False
     return all(f == "ht0" or (a.shape == b.shape and torch.equal(a, b))
                for f, a, b in zip(RiccatiIPSpec._fields, arrays.ric,
@@ -340,9 +362,9 @@ def make_batched_rollout(arrays: ControllerArrays, cfg: ControllerConfig,
     ``actuator_mode`` is "consistent" or "smart"; ``infeas_mode`` None or
     "certificate" (see the module note); ``plant_step(x (B, nx), u (B, nu),
     w (B, nx)) -> x_next`` defaults to the linear plant; ``one_solve`` (an
-    extended controller under "ip_riccati": one solve a step with
-    per-rollout bounds, see the module note) defaults to wherever the two
-    QPs allow it, and False solves both and selects."""
+    extended controller under "ip_riccati" or "ip_hybrid": one solve a
+    step with per-rollout bounds, see the module note) defaults to
+    wherever the two QPs allow it, and False solves both and selects."""
     if infeas_mode not in (None, "certificate"):
         raise ValueError(f"unknown infeas_mode {infeas_mode!r}")
     if plant_step is None:
@@ -353,8 +375,8 @@ def make_batched_rollout(arrays: ControllerArrays, cfg: ControllerConfig,
         one_solve = eligible
     elif one_solve and not eligible:
         raise ValueError("one_solve needs an extended controller under "
-                         "solver 'ip_riccati' whose two QPs differ in the "
-                         "initial tube's bounds alone")
+                         "solver 'ip_riccati' or 'ip_hybrid' whose two QPs "
+                         "differ in the initial tube's bounds alone")
 
     def rollout(x0, refs, w, theta, gamma, carry0=None):
         carry = init_carry(arrays, cfg, x0) if carry0 is None else carry0

@@ -9,7 +9,8 @@ polish the app's float64 schedule adds (the JAX program with the polish
 takes minutes to compile on the CPU; the polish is held to the JAX
 package's in ``tests/test_torch_polish_ip.py``); the run is the
 ``--quick`` one cut from 60 to 20 steps.  The GIF and the strip PNG are
-written from ``run``'s trajectories.
+written from ``run``'s trajectories; with ``--strip-dir`` each arm's strip
+goes to that directory too (``write_figures``).
 """
 
 import numpy as np
@@ -115,3 +116,15 @@ def test_gif_and_strip_are_written(ran, tmp_path):
     assert len(frames) == len(range(0, T + 1, 5))
     assert (tmp_path / "a.gif").read_bytes()[:6] == b"GIF89a"
     assert (tmp_path / "a_strip.png").stat().st_size > 1000
+
+
+def test_strip_dir_gets_each_arms_strip(ran, tmp_path, monkeypatch):
+    out, _ = ran
+    monkeypatch.setenv("RTMPC_RESULTS_DIR", str(tmp_path / "results"))
+    args = create_animations.parse_args(
+        ARGV + ["--strip-dir", str(tmp_path / "strips")])
+    paths = create_animations.write_figures(args, out["traj"], every=10)
+    for arm in ("tube", "track"):
+        strip = tmp_path / "strips" / f"animation_{arm}_p0.4_strip.png"
+        assert str(strip) in paths and strip.stat().st_size > 1000
+        assert (tmp_path / "results" / f"animation_{arm}_p0.4.gif").exists()

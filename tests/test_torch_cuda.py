@@ -123,6 +123,39 @@ def test_closed_loop_cuda_matches_admm(flagship_cuda):
     assert (ok.x - oa.x).abs().max().item() <= 1e-3
 
 
+def test_closed_loop_polish_cuda_matches_admm():
+    """``polish=True`` under solver "cuda": the kernel's primal is polished
+    by the shared ``polish_solution`` per rollout; the trajectories match
+    the plain ADMM engine polished the same way (the JAX package's
+    ``tests/test_qp_pallas.py:113-141``: flagship, 30 iterations, B=4,
+    T=8, 60% loss, float32; its bars: states 1e-4, ``r_dual`` rtol 0.2 /
+    atol 1e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the ADMM kernel has no CPU mode")
+    setup = flagship_setup()
+    arrays, cfg = setup.to_device(torch.float32, "cuda", solver="cuda",
+                                  iters=30, polish=True)
+    B, T = 4, 8
+    g = torch.Generator(device="cuda").manual_seed(3)
+    theta, gamma = draw_loss_masks(g, T, 0.6, 0.6, (B,))
+    w = draw_disturbances(g, T, [-0.1, -0.1], [0.1, 0.1], (B,))
+    refs = torch.zeros(B, T, 2, device="cuda")
+    refs[:, :, 0] = 3.0
+    x0 = torch.zeros(B, 2, device="cuda")
+    runs = {}
+    for solver in ("cuda", "admm"):
+        c = dataclasses.replace(cfg, solver=solver)
+        before = admm_solve_cuda.launches
+        runs[solver] = make_batched_rollout(arrays, c, T)(x0, refs, w, theta,
+                                                          gamma)
+        launched = admm_solve_cuda.launches - before
+        assert launched == (T if solver == "cuda" else 0), launched
+    (ck, ok), (ca, oa) = runs["cuda"], runs["admm"]
+    torch.testing.assert_close(ok.x, oa.x, rtol=0, atol=1e-4)
+    torch.testing.assert_close(ok.r_dual, oa.r_dual, rtol=0.2, atol=1e-5)
+    assert torch.equal(ck.feasible, ca.feasible)
+
+
 def test_step_profile_reads_the_kernel(flagship_cuda):
     """The step profiler finds both ADMM launches of every step in the
     profiler's device events."""

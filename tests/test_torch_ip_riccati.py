@@ -24,9 +24,29 @@
     relative, and primal residuals of 1e-18);
   - one float32 case (refinement on) on the double integrator: z within
     1e-4 of the JAX package's float32 solve.
+* The warm starts on one cartpole QP (the tube arm's step-3 theta of the
+  closed loop below), float64, 30 iterations, against the JAX function on
+  the same state (``ip_state_from_jax``): ``"resume"`` from 8 JAX
+  iterations on that theta, ``"shifted"`` from the converged state of the
+  step-0 theta; the primal and the returned state within 1e-9 (measured
+  3.4e-15 and 5.8e-12: from a shared state the two runs stay together
+  through the endgame).
+* The float32 -> float64 hybrid (``iters32=25, iters64=12``, the apps'
+  budget) on the tube arm's 6 closed-loop thetas against the JAX float64
+  solve (30 iterations) and the JAX hybrid: on the first three (steps 0,
+  3 and 8), which every solve converges, z within 1e-5 of both (measured
+  1.5e-7).  The last three (step 15, the saturating reference, the
+  perturbed state) are hard: there neither package's hybrid converges in
+  25 + 12 iterations (dual residuals 1.3e-3 to 2.7e-2 in both) and where
+  each stops follows the rounding of its float32 phase (the port's and
+  the JAX package's primals read up to 1.24 apart on the saturating one;
+  float64 converges there in 30 iterations): held to a primal residual of
+  1e-3 and a dual residual above 1e-4 in both packages, which records the
+  shortfall rather than hiding it.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -41,6 +61,8 @@ from rtmpc_tpu.models.specs import (setup_tube_tracking as
                                     jax_setup_tube_tracking)
 from rtmpc_tpu.ops.assembly import QPTemplate as JaxQPTemplate
 from rtmpc_tpu.ops.ip_riccati import ip_riccati_solve as jax_solve
+from rtmpc_tpu.ops.ip_riccati import (ip_riccati_solve_hybrid as
+                                      jax_solve_hybrid)
 from rtmpc_tpu.ops.ip_riccati import prepare_ip_riccati as jax_prepare
 from rtmpc_tpu.utils.polytope import box as jax_box
 
@@ -48,6 +70,8 @@ from rtmpc_tpu_torch.models import ric_spec_from_numpy, setup_tracking
 from rtmpc_tpu_torch.utils import box
 from rtmpc_tpu_torch.ops.ip_riccati import (_plu_factor, _plu_solve,
                                             init_ip_state, ip_riccati_solve,
+                                            ip_riccati_solve_hybrid,
+                                            ip_state_from_jax,
                                             prepare_ip_riccati)
 
 
@@ -182,8 +206,10 @@ def _closed_loop_thetas(sc, spec):
     return np.vstack([ths[[0, 3, 8, 15]], sat, pert])
 
 
-@pytest.mark.parametrize("arm", ["tube", "track"])
-def test_cartpole_matches_jax(arm):
+@functools.lru_cache(maxsize=None)
+def _cartpole(arm):
+    """``(sc, template, JAX spec, port spec, closed-loop thetas)`` of a
+    cartpole arm, set up once a test process."""
     sc = cartpole_scenario()
     if arm == "tube":
         st = jax_setup_tube_tracking(sc.A, sc.B, sc.Q, sc.R, sc.N, sc.X,
@@ -191,10 +217,14 @@ def test_cartpole_matches_jax(arm):
                                      rpi_method=1)
     else:
         st = jax_setup_tracking(sc.A, sc.B, sc.Q, sc.R, sc.N, sc.X, sc.U)
-    tmpl = st.template
-    jspec = jax_prepare(tmpl, dtype=jnp.float64)
+    jspec = jax_prepare(st.template, dtype=jnp.float64)
     spec = _bridge(jspec)
-    th = _closed_loop_thetas(sc, spec)
+    return sc, st.template, jspec, spec, _closed_loop_thetas(sc, spec)
+
+
+@pytest.mark.parametrize("arm", ["tube", "track"])
+def test_cartpole_matches_jax(arm):
+    sc, tmpl, jspec, spec, th = _cartpole(arm)
     jsolve = _jax_batched(jspec, sc.N)
 
     early_j = jsolve(jnp.asarray(th), 10)
@@ -217,6 +247,49 @@ def test_cartpole_matches_jax(arm):
         a = objective(got.z_primal[i].numpy(), th[i])
         b = objective(np.asarray(want.z_primal[i]), th[i])
         assert abs(a - b) <= 1e-8 * abs(b), (i, a, b)
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+@pytest.mark.parametrize("warm", ["resume", "shifted"])
+def test_cartpole_warm_starts_match_jax(warm):
+    sc, _, jspec, spec, th = _cartpole("tube")
+    N = sc.N
+    prev, k0 = (th[1:2], 8) if warm == "resume" else (th[0:1], 30)
+    st0 = jax.jit(jax.vmap(lambda t: jax_solve(
+        jspec, t, N, iters=k0, want_state=True)[1]))(jnp.asarray(prev))
+    jsol, jst = jax.jit(jax.vmap(lambda t, s: jax_solve(
+        jspec, t, N, iters=30, state0=s, warm=warm, want_state=True)))(
+        jnp.asarray(th[1:2]), st0)
+    sol, st = ip_riccati_solve(spec, torch.tensor(th[1:2]), N, iters=30,
+                               state0=ip_state_from_jax(_np(st0), N),
+                               warm=warm, want_state=True)
+    np.testing.assert_allclose(sol.z_primal.numpy(),
+                               np.asarray(jsol.z_primal), rtol=0, atol=1e-9)
+    for name, a, b in zip(("x", "u", "w", "y", "mu_ss", "lam", "s"), st,
+                          ip_state_from_jax(_np(jst), N)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-9,
+                                   err_msg=name)
+
+
+def test_cartpole_hybrid_matches_jax():
+    sc, _, jspec, spec, th = _cartpole("tube")
+    N = sc.N
+    want64 = _jax_batched(jspec, N)(jnp.asarray(th), 30)
+    want_h = jax.jit(jax.vmap(lambda t: jax_solve_hybrid(
+        jspec, t, N, iters32=25, iters64=12)))(jnp.asarray(th))
+    got = ip_riccati_solve_hybrid(spec, torch.tensor(th), N, iters32=25,
+                                  iters64=12)
+    z = got.z_primal.numpy()
+    for want in (want64, want_h):
+        np.testing.assert_allclose(z[:3], np.asarray(want.z_primal)[:3],
+                                   rtol=0, atol=1e-5)
+    assert float(got.r_prim.max()) <= 1e-3
+    assert float(want_h.r_prim.max()) <= 1e-3
+    assert float(got.r_dual[3:].min()) > 1e-4
+    assert float(want_h.r_dual[3:].min()) > 1e-4
 
 
 @pytest.mark.parametrize("N", [1, 2])

@@ -2,7 +2,8 @@
 its kernel build fails loudly without nvcc.
 
 The run-time checks (every app and module of the port, down to the
-condensed QP and Fig. 3d's timer; and the data-parallel path and the
+condensed QP, Fig. 3d's timer, the hybrid interior point and the ADMM's
+early exit; and the data-parallel path and the
 entry points in a one-rank gloo group) run in a fresh interpreter (a
 subprocess), so nothing this test process imported (JAX included, via
 ``conftest.py``) leaks in; there every import of ``jax`` or of
@@ -132,6 +133,14 @@ _ROLLOUT = _BLOCK_JAX + textwrap.dedent("""
     assert cfg.n_red == 15 and bool(carry.feasible.all())
     sol, _ = setup.template.solve_dense([0.5, 0.0], [4.0, 0.0])
     assert sol.status == "optimal"
+    # the hybrid interior point (float32 engine, float64 spec) and the
+    # ADMM's early exit
+    for kw in (dict(solver="ip_hybrid"),
+               dict(solver="admm", iters=20, iters2=20, early_tol=1e-3)):
+        arrays, cfg = setup.to_device(torch.float32, "cpu", **kw)
+        carry, outs = make_batched_rollout(arrays, cfg, 3)(
+            x0, refs, w, theta, gamma)
+        assert bool(carry.feasible.all()) and bool(torch.isfinite(outs.x).all())
     for blocked in ("jax", "rtmpc_tpu", "rtmpc_tpu.utils"):
         try:
             __import__(blocked)

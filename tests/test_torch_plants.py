@@ -1,5 +1,8 @@
 """The port's nonlinear cartpole plant against the JAX package's.
 
+* ``linear_plant_step`` (batch-explicit) against the JAX function under
+  ``vmap`` on the cartpole's discrete model and numpy-seeded states,
+  inputs and disturbances, float64, within 1e-12.
 * ``cartpole_derivatives``, ``cartpole_step`` (both methods) and
   ``cartpole_zoh_step`` on numpy-seeded states and forces, float64, within
   1e-12 of the JAX functions under ``vmap``.
@@ -55,6 +58,21 @@ def _states(seed=0):
 def _close(got, want, name=""):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=TOL, err_msg=name)
+
+
+def test_linear_plant_step_matches_jax():
+    sc = cartpole_scenario()
+    x, f = _states(2)
+    w = np.random.default_rng(3).uniform(sc.w_lo, sc.w_hi, (B, 4))
+    u = f[:, None]
+    want = jax.vmap(lambda xi, ui, wi: jax_plants.linear_plant_step(
+        jnp.asarray(sc.A), jnp.asarray(sc.B), xi, ui, wi))(
+        jnp.asarray(x), jnp.asarray(u), jnp.asarray(w))
+    got = plants.linear_plant_step(torch.tensor(sc.A), torch.tensor(sc.B),
+                                   torch.tensor(x), torch.tensor(u),
+                                   torch.tensor(w))
+    assert got.shape == (B, 4) and "linear_plant_step" in plants.__all__
+    _close(got, want)
 
 
 def test_derivatives_match_jax():

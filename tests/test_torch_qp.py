@@ -196,12 +196,35 @@ def test_wrapper_rejects_other_devices(specs64):
 @pytest.mark.parametrize("option", [{"early_tol": 1e-4, "polish": True},
                                     {"early_tol": 1e-4}])
 def test_unported_options_raise(specs64, option):
-    """The residual-based early exit is not ported and raises, with or
-    without the (ported) polish."""
-    pa = specs64[1]
-    with pytest.raises(NotImplementedError):
-        admm_solve(pa.admm, torch.zeros(2, 4, dtype=torch.float64), None,
-                   iters=5, **option)
+    """The options that raised while they were not ported, the residual
+    early exit with and without the polish, now solve.  The early exit
+    against ``jax.vmap`` of the JAX package's ``admm_solve`` with the same
+    ``early_tol`` (``iters=5`` is one chunk of 25 iterations in both): the
+    state and primal within 1e-10.  With ``polish=True`` the state stays
+    the raw early-exit iterate (bit for bit) and the primal is the one
+    ``apply_polish`` gives from it: the polish runs after the loop."""
+    from rtmpc_tpu_torch.ops.qp import apply_polish
+    ja, pa = specs64
+    th = np.random.default_rng(4).uniform(-2, 2, (3, 4))
+    got = admm_solve(pa.admm, torch.tensor(th), None, iters=5, **option)
+    raw = admm_solve(pa.admm, torch.tensor(th), None, iters=5,
+                     early_tol=1e-4)
+    want = jax.jit(jax.vmap(lambda t: jax_admm_solve(
+        ja.admm, t, None, iters=5, early_tol=1e-4)))(jnp.asarray(th))
+    for f in ("x", "y", "z"):
+        np.testing.assert_allclose(getattr(raw.state, f).numpy(),
+                                   np.asarray(getattr(want.state, f)),
+                                   rtol=0, atol=TOL64, err_msg=f)
+    for a, b in zip(got.state, raw.state):
+        assert torch.equal(a, b)
+    if option.get("polish"):
+        assert torch.equal(got.z_primal,
+                           apply_polish(pa.admm, torch.tensor(th),
+                                        raw).z_primal)
+    else:
+        np.testing.assert_allclose(got.z_primal.numpy(),
+                                   np.asarray(want.z_primal), rtol=0,
+                                   atol=TOL64)
 
 
 def test_kernel_plain_version_matches_pallas_cartpole_shape():
