@@ -9,8 +9,14 @@ fail loudly (non-zero exit) on any error:
   1. a CUDA device is required (no CPU fallback: without one the script
      exits non-zero and prints no result);
   2. the card's name and power limit (``nvidia-smi``);
-  3. the ADMM kernel (``rtmpc_tpu_torch/csrc/admm_kernel.cu``) is built from
-     this checkout with nvcc;
+  3. the ADMM kernel K1 (``rtmpc_tpu_torch/csrc/admm_kernel.cu`` and
+     ``admm_factored.cu``, one nvcc a source, side by side) is built from
+     this checkout.  K1 has three paths, picked by (B, n_p, m_p): "fac"
+     (the factored form, the operator resident in shared memory) for every
+     batch up to ``qp_cuda.FAC_MAX_B`` rows and every batch above 1024
+     columns, "smem" and "l2" (the composite form) for the rest.  Every
+     comparison below holds a launch to the plain version of the path it
+     takes (``kernel_bench.compare_with_plain``);
   4. the flagship is set up with the port's own jax-free setup (any
      ``import jax`` raises in this script);
   5. the kernel against its plain PyTorch version on the card, cold
@@ -18,7 +24,8 @@ fail loudly (non-zero exit) on any error:
      f64 (no further from it than the plain f32 version): at B=4099
      (ragged tail) and at the main path's B=16384 (phase 2 from the
      kernel's own phase-1 state), and at B=1 and one row less and more
-     than a thread block owns (there against absolute float64 bars, see
+     than a thread block owns (B=1 and 63 on "fac", 65 on "smem"; there
+     against absolute float64 bars, see
      ``rtmpc_tpu_torch/ops/kernel_bench.py``); times of kernel and plain
      version for one 60-iteration phase at B=16384;
  5b. the kernel against its plain version on random QPs at the widest
@@ -34,11 +41,11 @@ fail loudly (non-zero exit) on any error:
 Then the paper's Fig. 3a slice, the 4-D cartpole (N=20) of
 ``rtmpc_tpu_torch.apps.results_linear``:
 
-  8. the kernel's large-composite path (``admm_kernel_cluster``) at the
-     cartpole's shapes, both QPs (112 + 792 and 112 + 840 columns), at
-     B=200 (phase 2 warm from the kernel's own phase-1 state), B=37
-     (ragged), B=1 and one row less and more than a cluster owns, 200
-     cold then 200 warm iterations: against its plain
+  8. the kernel at the cartpole's shapes, both QPs (112 + 792 and 112 +
+     840 columns; the cluster path ``admm_kernel_cluster`` at B=200, "fac"
+     at the others), at B=200 (phase 2 warm from the kernel's own
+     phase-1 state), B=37 (ragged), B=1 and one row less and more than a
+     cluster owns, 200 cold then 200 warm iterations: against its plain
      version in float32, and against the plain version in float64 no
      further than 3x plain float32 (absolute bars at the small batches);
      times of kernel and
@@ -46,7 +53,11 @@ Then the paper's Fig. 3a slice, the 4-D cartpole (N=20) of
      three main shapes the kernel's time beside its FP32 bound (the
      factored form's operations, the least the function needs) and the
      library's time for the products alone (``iters`` back-to-back
-     ``torch.mm`` in float32, TF32 off);
+     ``torch.mm`` in float32, TF32 off); then the crossover of "fac"
+     against the composite paths (one phase's device time on each at B in
+     1, 2, ..., 64 on the flagship's and the cartpole tube QP) beside the
+     dispatch's ``FAC_MAX_B``, failing where "fac" is not the faster at
+     every one of them;
   9. (run after 15, whose trajectories give its inputs) the structured
      interior point in float64 on the card against the CPU, on 64 thetas
      from the sample trajectories of a full-size float64 sweep;
@@ -59,7 +70,8 @@ Then the paper's Fig. 3a slice, the 4-D cartpole (N=20) of
      rtmpc_tpu_torch.apps.results_linear --device cuda``;
  11. the same sweep under ``--solver cuda`` (the ADMM kernel, float32):
      2 kernel launches a step on the tube arm, 3 on the tracking arm (the
-     certificate's extra iterations are one more), every output finite,
+     certificate's extra iterations are one more), all on the cluster path
+     (B=200), Fig. 3d's B=1 ticks on "fac", every output finite,
      the tube arm feasible, the tube invariant on the sample trajectories;
      its rows are printed against the truth but not gated (the ADMM does
      not reach trajectory parity on this geometry).
@@ -70,14 +82,19 @@ Then the rest of the paper's Results, the extended tube-tracking arm
 
  12. the extended controller is set up (two QPs of 112 + 1648 columns: the
      initial state lies in the tube, one row for each of Z's 854);
- 13. the kernel's cluster path at that shape (above 1024 columns a cluster
-     owns 8 rows), both QPs, as in phase 8: B=200, B=37, B=1 and one row
-     less and more than a cluster owns; times, bound and ``torch.mm``;
+ 13. the kernel at that shape (above 1024 columns every batch takes
+     "fac"), both QPs, as in phase 8: B=200, B=37, B=1 and one row less
+     and more than a cluster of the composite path owns; times at B=200
+     and B=1 beside the cluster path's in the same call, bound and
+     ``torch.mm``;
  14. both apps at full size under ``--solver cuda`` (3 arms x 200
      rollouts x 250 steps each, ``results_nonlinear`` with ``--extended``):
      every output finite, both tube arms feasible, the kernel launches as
      reckoned (2 a step on RT-MPC, 3 on R-MPC, 4 on Ext-RT-MPC: 2 QPs x 2
-     phases; 6 where that arm runs on certificates), the tube invariant of
+     phases; 6 where that arm runs on certificates; the extended arm and
+     Fig. 3d on "fac", the other arms on the cluster path), each arm's rows
+     printed beside the float64 truth (largest relative distance, stopped
+     runs), the tube invariant of
      the RT-MPC arm on the sample trajectories (the extended arm's margin
      is printed: its actuator resets the nominal state to the QP's, which
      after a lost reply starts from a prediction and not from the plant's
@@ -103,7 +120,7 @@ flagship's setup):
  17. the served session of ``rtmpc_tpu_torch.apps.serve_controller`` at
      its defaults (15,000 ticks in windows of 150, loss 0.4, solver
      "cuda", float32), each window one CUDA graph replay with K1 at B=1
-     inside it: the app's four checks pass (window-mean tick p99 under
+     inside it (every launch on "fac"): the app's four checks pass (window-mean tick p99 under
      20 ms, no window deadline misses, feasible, ``mean |x1 - ref|`` over
      the last second under 0.5); 2 kernel launches a tick captured, 30,000 run
      (captured x replays); the first window through the graph equals the
@@ -112,10 +129,12 @@ flagship's setup):
      prints the window-mean tick times through the graph, the tick time
      eagerly, the device time a tick, the per-dispatch report and the
      dispatch floor;
- 18. K1 at B=1, the served shape (40 + 112 columns, 60 iterations):
-     against its plain version (the small-batch bars of
-     ``kernel_bench.py``), its time beside the plain version's, its FP32
-     bound and 60 x ``torch.mm`` (1, 152) @ (152, 152);
+ 18. K1 at B=1, the served shape (40 + 112 columns, 60 iterations, the
+     "fac" path): against its plain version (the small-batch bars of
+     ``kernel_bench.py``), its time (device time of a CUDA graph of
+     launches) beside the smem path's in the same call, the plain
+     version's, its FP32 bound and 60 x ``torch.mm`` (1, 152) @ (152,
+     152);
  19. the six example apps (``rtmpc_tpu_torch.apps.example_*``) at full
      length, under the dense interior point in float64 and under
      ``--solver cuda``: each one's checks pass; their seconds and kernel
@@ -140,16 +159,17 @@ need matplotlib):
      nonlinear plant, float64): its two checks, and its box equal to the
      port's CPU run on the same initial states to 1e-10;
  22. ``create_animations.run`` under ``--solver cuda`` at full T (K1 at
-     B=1 on the cartpole's QPs, 2 launches a step on each arm), its checks
+     B=1 on the cartpole's QPs, "fac", 2 launches a step on each arm), its checks
      (both arms finite, the tube arm's |phi| < 0.3; the tracking arm's
      bound printed, not gated, as ``phase_animations`` says), no
-     rendering; K1's time at B=1 there beside its bound and
-     ``torch.mm``;
+     rendering; K1's time at B=1 there beside the cluster path's, its
+     bound and ``torch.mm``;
  23. the condensed QPs (``condense_template``): K1 against its plain
-     version on the condensed flagship (16 + 96, smem path) at B=16384 and
-     B=1 and on the condensed cartpole QPs (32 + 712 and 32 + 760, cluster
-     path, 16 rows a cluster) at B=200 and B=1, each timed beside its
-     bound and ``torch.mm``; the condensed flagship closed loop at
+     version on the condensed flagship (16 + 96, smem path; "fac" at B=1)
+     at B=16384 and B=1 and on the condensed cartpole QPs (32 + 712 and 32
+     + 760, cluster path, 16 rows a cluster; "fac" at B=1) at B=200 and
+     B=1, each timed beside its bound and ``torch.mm``, B=1 beside the
+     composite path's time; the condensed flagship closed loop at
      B=16384, T=120 (240 launches, feasible, finite, the tube invariant at
      every step; on phase 7's inputs within 1e-3 of the plain float32
      loop and no further from float64 on the CPU than 1e-3 or 3x plain
@@ -334,12 +354,45 @@ def _product_yardstick(label, B, spec, th, iters, kernel_ms, dev):
     return bound, by, mm
 
 
+def _fac_timing(label, B, spec, th, iters, dev, reps=20):
+    """A "fac" shape's phase time (the dispatch's path there) beside the
+    composite path of the width ("before"), each the device time of a CUDA
+    graph of ``reps`` launches (``kernel_bench.graph_time_ms``: a phase of
+    ~0.1 ms is shorter than the host's time to issue it), in turns (before,
+    fac, fac, before); the plain version's by CUDA events; the bound and
+    ``torch.mm``.  Returns (ms, plain ms, (bound ms, bound by, torch.mm
+    ms), before ms)."""
+    from rtmpc_tpu_torch.ops.kernel_bench import graph_time_ms, time_ms
+    from rtmpc_tpu_torch.ops.qp_cuda import (_admm_solve_cuda_on_path,
+                                             _admm_solve_plain,
+                                             admm_solve_cuda, kernel_path)
+    n_p, m_p = spec.Kinv.shape[0], spec.As.shape[0]
+    old = kernel_path(n_p + m_p)
+    _require(kernel_path(n_p + m_p, B, n_p) == "fac", (label, B))
+    t = {"fac": [], old: []}
+    for path in (old, "fac", "fac", old):
+        if path == "fac":
+            fn = lambda: admm_solve_cuda(spec, th, None, iters)  # noqa: E731
+        else:
+            fn = lambda: _admm_solve_cuda_on_path(spec, th, None, iters,  # noqa: E731
+                                                  old)
+        t[path].append(graph_time_ms(fn, reps))
+    plain_ms = time_ms(lambda: _admm_solve_plain(spec, th, None, iters), 3)
+    ms, before = float(np.mean(t["fac"])), float(np.mean(t[old]))
+    print("%s, one %d-iteration phase, B=%d: fac %s ms, before (%s path, "
+          "same call) %s ms, plain %.4f ms"
+          % (label, iters, B, t["fac"], old, t[old], plain_ms))
+    return ms, plain_ms, _product_yardstick(label, B, spec, th, iters, ms,
+                                            dev), before
+
+
 def phase_kernel_vs_plain(arrays, arrays64, dev):
     from rtmpc_tpu_torch.ops.kernel_bench import (F64_SMALL_B, Y_ATOL,
                                                   Y_ATOL_SMALL_B, Z_ATOL)
     from rtmpc_tpu_torch.ops.kernel_bench import time_ms as _time_ms
     from rtmpc_tpu_torch.ops.qp_cuda import (_admm_solve_cuda_plain,
-                                             admm_solve_cuda, kernel_rows)
+                                             admm_solve_cuda, kernel_path,
+                                             kernel_rows)
     rng = np.random.default_rng(0)
     iters, bars = (ITERS, ITERS2), (Z_ATOL, Y_ATOL)
     specs, specs64 = ((a.admm, a.admm2) for a in (arrays, arrays64))
@@ -356,12 +409,17 @@ def phase_kernel_vs_plain(arrays, arrays64, dev):
     thf = theta(B_FULL)
     err = max(err, _compare(specs, specs64, thf, thf, True, iters, bars))
     # tiny and ragged around the rows of a thread block: the small batches'
-    # own y bar and absolute bars against float64 (kernel_bench.py)
+    # own y bar and absolute bars against float64 (kernel_bench.py); the
+    # error returned is the smem path's ("fac" at B=1 has its own, phase 18)
     rows = kernel_rows(arrays.admm.Kinv.shape[0], arrays.admm.As.shape[0])
-    for B in (1, rows - 1, rows + 1):
-        err = max(err, _compare(specs, specs64, theta(B), theta(B), False,
-                                iters, (Z_ATOL, Y_ATOL_SMALL_B),
-                                f64_bars=F64_SMALL_B))
+    paths = {B: kernel_path(152, B, 40) for B in (1, rows - 1, rows + 1)}
+    print("small batches: B=1, %d, %d on paths %s" % (
+        rows - 1, rows + 1, list(paths.values())))
+    for B, path in paths.items():
+        e = _compare(specs, specs64, theta(B), theta(B), False, iters,
+                     (Z_ATOL, Y_ATOL_SMALL_B), f64_bars=F64_SMALL_B)
+        if path == "smem":
+            err = max(err, e)
 
     # one 60-iteration phase at the bench's batch, in turns
     times = {"plain": [], "kernel": []}
@@ -480,6 +538,9 @@ def phase_served_session(setup):
              ses.captured_launches)
     _require(ses.launches == 2 * SERVE_TICKS and raw > 0,
              (ses.launches, raw))
+    by_path = dict(admm_solve_cuda.launches_by_path)
+    print("launches through the wrapper by path: %s" % by_path)
+    _require(by_path["fac"] == raw, by_path)
     first, eager = out["first"], out["first_eager"]
     dg = max(_max_err(a, b) for a, b in zip(first, eager))
     print("window 1, graph vs eager: max |diff| over all outputs %.3e" % dg)
@@ -511,13 +572,11 @@ def phase_served_session(setup):
 
 
 def phase_k1_b1(arrays, arrays64, dev):
-    """Phase 18: K1 at the served shape, B=1.  Returns (max error, kernel
-    ms, plain ms, (bound ms, bound by, torch.mm ms))."""
+    """Phase 18: K1 at the served shape, B=1 (the "fac" path).  Returns
+    (max error, ms, plain ms, (bound ms, bound by, torch.mm ms), the smem
+    path's ms in the same call)."""
     from rtmpc_tpu_torch.ops.kernel_bench import (F64_SMALL_B, Y_ATOL_SMALL_B,
                                                   Z_ATOL)
-    from rtmpc_tpu_torch.ops.kernel_bench import time_ms as _time_ms
-    from rtmpc_tpu_torch.ops.qp_cuda import (_admm_solve_cuda_plain,
-                                             admm_solve_cuda)
     rng = np.random.default_rng(18)
     th = torch.tensor(rng.uniform(-2, 2, (1, 4)), dtype=torch.float32,
                       device=dev)
@@ -525,16 +584,9 @@ def phase_k1_b1(arrays, arrays64, dev):
     err = _compare(specs, specs64, th, th, True, (ITERS, ITERS2),
                    (Z_ATOL, Y_ATOL_SMALL_B), label="served shape",
                    f64_bars=F64_SMALL_B)
-    t = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        fn = admm_solve_cuda if which == "kernel" else _admm_solve_cuda_plain
-        t[which].append(_time_ms(lambda: fn(arrays.admm, th, None, ITERS),
-                                 reps=50))
-    print("one phase, B=1, 60 iterations: kernel %s ms, plain %s ms"
-          % (t["kernel"], t["plain"]))
-    ms, plain_ms = (float(np.mean(t[k])) for k in ("kernel", "plain"))
-    return err, ms, plain_ms, _product_yardstick(
-        "served shape 40+112", 1, arrays.admm, th, ITERS, ms, dev)
+    ms, plain_ms, bound, before = _fac_timing(
+        "served shape 40+112", 1, arrays.admm, th, ITERS, dev, reps=50)
+    return err, ms, plain_ms, bound, before
 
 
 def phase_examples():
@@ -554,6 +606,30 @@ def phase_examples():
                      (name, solver, out["launches"]))
 
 
+def phase_crossover(flagship_spec, tube_spec, dev):
+    """The crossover of the "fac" path against the composite paths: one
+    phase's device time on each (graph replay, in turns) at B in
+    ``kernel_bench.CROSSOVER_BATCHES`` on the flagship's QP (60
+    iterations) and the cartpole tube QP (200); prints the table and the
+    largest B up to which "fac" is the faster on both, beside the
+    dispatch's ``FAC_MAX_B``; fails if that B is below it."""
+    from rtmpc_tpu_torch.ops.kernel_bench import crossover
+    from rtmpc_tpu_torch.ops.qp_cuda import FAC_MAX_B
+    res = crossover({"flagship 40+112": flagship_spec,
+                     "cartpole tube 112+792": tube_spec},
+                    {"flagship 40+112": ITERS,
+                     "cartpole tube 112+792": CP_ITERS}, dev, reps=3)
+    print("crossover: \"fac\" the faster up to B=%s on both shapes (of %s); "
+          "the dispatch takes it up to FAC_MAX_B=%d (%s)"
+          % (res["b_star"], list(res)[:-1], FAC_MAX_B,
+             torch.cuda.get_device_name(0)))
+    # the dispatch's rule holds on this card: "fac" the faster at every
+    # batch it is given below 1024 columns
+    _require(res["b_star"] is not None and res["b_star"] >= FAC_MAX_B,
+             (res["b_star"], FAC_MAX_B))
+    return res
+
+
 def _cartpole_thetas(sc, B, rng, dev, dtype):
     theta = np.zeros((B, 8))
     theta[:, :4] = rng.uniform(-1, 1, (B, 4)) * np.array([0.3, 0.5, 0.05,
@@ -562,14 +638,20 @@ def _cartpole_thetas(sc, B, rng, dev, dtype):
     return torch.tensor(theta, dtype=dtype, device=dev)
 
 
-def phase_cartpole_kernel(sc, qps, dev, bars, f64_small_bars, seed):
-    """Phases 8 and 13: the cluster path against its plain version at the
-    cartpole controllers' shapes.  ``qps``: by label, a QP's ``(specs,
-    specs64)``, each the pair (phase-1 spec, phase-2 spec), in float32 and
-    float64 on the card.  Returns by label ``(max error, kernel ms, plain
-    ms, (bound ms, bound by, torch.mm ms))`` of one timed phase at B=200."""
+def phase_cartpole_kernel(sc, qps, dev, bars, f64_small_bars, seed,
+                          time_b1=False):
+    """Phases 8 and 13: K1 against its plain version at the cartpole
+    controllers' shapes (the cluster path by width; "fac" at the small
+    batches, and at every batch above 1024 columns).  ``qps``: by label, a
+    QP's ``(specs, specs64)``, each the pair (phase-1 spec, phase-2 spec),
+    in float32 and float64 on the card.  Returns by label ``(errors, ms,
+    plain ms, (bound ms, bound by, torch.mm ms), before ms)`` of one timed
+    phase at B=200 (before: the cluster path's time in the same call where
+    B=200 takes "fac", else None), and with ``time_b1`` the same at B=1
+    under ``label + " B=1"``; errors: ``{B: (path, max error)}`` of the
+    QP's comparisons (``_err_of`` reads them)."""
     from rtmpc_tpu_torch.ops.kernel_bench import time_ms as _time_ms
-    from rtmpc_tpu_torch.ops.qp_cuda import (_admm_solve_cuda_plain,
+    from rtmpc_tpu_torch.ops.qp_cuda import (_admm_solve_plain,
                                              admm_solve_cuda, kernel_path,
                                              kernel_rows)
     rng = np.random.default_rng(seed)
@@ -577,30 +659,51 @@ def phase_cartpole_kernel(sc, qps, dev, bars, f64_small_bars, seed):
     for label, (specs, specs64) in qps.items():
         n_p, m_p = specs[0].Kinv.shape[0], specs[0].As.shape[0]
         rows = kernel_rows(n_p, m_p)
-        print("%s QP: n_p + m_p = %d + %d (%s path, %d rows a cluster)"
-              % (label, n_p, m_p, kernel_path(n_p + m_p), rows))
+        batches = CP_BATCHES + (1, rows - 1, rows + 1)
+        print("%s QP: n_p + m_p = %d + %d (%s path by width, %d rows a "
+              "cluster); paths at B=%s: %s"
+              % (label, n_p, m_p, kernel_path(n_p + m_p), rows, batches,
+                 [kernel_path(n_p + m_p, B, n_p) for B in batches]))
         _require(kernel_path(n_p + m_p) == "l2", (label, n_p, m_p))
-        err = 0.0
-        for B in CP_BATCHES + (1, rows - 1, rows + 1):
+        err = {}
+        for B in batches:
             th = _cartpole_thetas(sc, B, rng, dev, torch.float32)
-            err = max(err, _compare(
+            err[B] = (kernel_path(n_p + m_p, B, n_p), _compare(
                 specs, specs64, th, th, B == 200, (CP_ITERS, CP_ITERS),
                 bars, label=label,
                 f64_bars=None if B in CP_BATCHES else f64_small_bars))
         th = _cartpole_thetas(sc, 200, rng, dev, torch.float32)
-        t = {"plain": [], "kernel": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn = admm_solve_cuda if which == "kernel" else \
-                _admm_solve_cuda_plain
-            t[which].append(_time_ms(
-                lambda: fn(specs[0], th, None, CP_ITERS), reps=5))
-        print("%s QP, one %d-iteration phase, B=200: kernel %s ms, plain "
-              "%s ms" % (label, CP_ITERS, t["kernel"], t["plain"]))
-        ms, plain_ms = (float(np.mean(t[k])) for k in ("kernel", "plain"))
-        out[label] = (err, ms, plain_ms, _product_yardstick(
-            "cartpole %s %d+%d" % (label, n_p, m_p), 200, specs[0], th,
-            CP_ITERS, ms, dev))
+        name = "cartpole %s %d+%d" % (label, n_p, m_p)
+        if kernel_path(n_p + m_p, 200, n_p) == "fac":
+            out[label] = (err,) + _fac_timing(name, 200, specs[0], th,
+                                              CP_ITERS, dev, reps=5)
+        else:
+            t = {"plain": [], "kernel": []}
+            for which in ("plain", "kernel", "kernel", "plain"):
+                fn = admm_solve_cuda if which == "kernel" else \
+                    _admm_solve_plain
+                t[which].append(_time_ms(
+                    lambda: fn(specs[0], th, None, CP_ITERS), reps=5))
+            print("%s QP, one %d-iteration phase, B=200: kernel %s ms, "
+                  "plain %s ms" % (label, CP_ITERS, t["kernel"], t["plain"]))
+            ms, plain_ms = (float(np.mean(t[k])) for k in ("kernel",
+                                                            "plain"))
+            out[label] = (err, ms, plain_ms, _product_yardstick(
+                name, 200, specs[0], th, CP_ITERS, ms, dev), None)
+        if time_b1:
+            th = _cartpole_thetas(sc, 1, rng, dev, torch.float32)
+            out[label + " B=1"] = (err,) + _fac_timing(
+                name, 1, specs[0], th, CP_ITERS, dev)
     return out
+
+
+def _err_of(by_label, path=None, B=None):
+    """The largest kernel-vs-plain error of ``phase_cartpole_kernel``'s
+    comparisons over its QPs, of those on ``path`` and at batch ``B``
+    (None: any)."""
+    return max(e for errs, *_ in by_label.values()
+               for b, (p, e) in errs.items()
+               if path in (None, p) and B in (None, b))
 
 
 def _admm_qps(setup, dev, pr=False):
@@ -742,11 +845,14 @@ MAX_ANGLE = 0.3 + 1e-3
 
 def phase_new_apps_cuda(setups, out_dir):
     """Phase 14: both new apps at full size through the kernel.  Returns
-    the launches on the extended arms' shape and on the whole cluster
-    path."""
+    the launches of the extended arms (1760 columns at B=200, the "fac"
+    path), of the two apps on the cluster path, and of the Ext-RT-MPC arm
+    of Fig. 3d (1760 columns at B=1 on "fac": its one-tick graph's warm-up
+    and capture)."""
     from rtmpc_tpu_torch.apps import results_linear_extended, results_nonlinear
+    from rtmpc_tpu_torch.apps.common import solve_time_stats
     from rtmpc_tpu_torch.ops.qp_cuda import admm_solve_cuda
-    ext_launches = l2_launches = 0
+    ext_launches = l2_launches = fig3d_ext = 0
     for mod, extra in ((results_linear_extended, []),
                        (results_nonlinear, ["--extended"])):
         app = mod.__name__.rsplit(".", 1)[1]
@@ -758,20 +864,31 @@ def phase_new_apps_cuda(setups, out_dir):
         t0 = time.perf_counter()
         out = mod.run(args, setups)
         torch.cuda.synchronize()
-        l2 = admm_solve_cuda.launches_by_path["l2"]
+        by_path = dict(admm_solve_cuda.launches_by_path)
         T = out["T"]
         got = {arm: c["kernel_launches"] for arm, c in out["counts"].items()}
-        print("%s --solver cuda done in %.1f s; kernel launches %s (l2 path "
-              "%d, smem path %d); the app's checks %s"
-              % (app, time.perf_counter() - t0, got, l2,
-                 admm_solve_cuda.launches_by_path["smem"],
+        print("%s --solver cuda done in %.1f s; kernel launches %s (by "
+              "path %s); the app's checks %s"
+              % (app, time.perf_counter() - t0, got, by_path,
                  "pass" if out["ok"] else "FAIL (printed, not gated)"))
         want = {arm: n * T for arm, n in LAUNCHES_A_STEP[app].items()}
         _require(got == want, (app, got, want))
-        _require(l2 == sum(want.values()) + FIG3D_LAUNCHES[app],
-                 (app, l2))
+        # the extended arm's QPs (1760 columns) and every B=1 tick of Fig.
+        # 3d on "fac", the other arms' B=200 on the cluster path
+        _require(by_path["fac"] == want["Ext-RT-MPC"] + FIG3D_LAUNCHES[app]
+                 and by_path["l2"] == want["RT-MPC"] + want["R-MPC"]
+                 and by_path["smem"] == 0, (app, by_path))
+        l2 = by_path["l2"]
+        _print_rows_vs_truth(app, out["rows"], mod.TRUTH)
         if FIG3D_LAUNCHES[app]:
             _print_fig3d(app + " --solver cuda", out["payload"])
+            fig3d = solve_time_stats.launches
+            print("%s Fig. 3d kernel launches through the wrapper by arm "
+                  "and path: %s" % (app, fig3d))
+            _require(sum(sum(c.values()) for c in fig3d.values())
+                     == sum(c["fac"] for c in fig3d.values())
+                     == FIG3D_LAUNCHES[app], fig3d)
+            fig3d_ext = fig3d["Ext-RT-MPC"]["fac"]
         _require_sweep_finite(out, app)
         res = out["results"]
         for arm in ("RT-MPC", "Ext-RT-MPC"):
@@ -785,7 +902,26 @@ def phase_new_apps_cuda(setups, out_dir):
             _require(out["max_angle"] <= MAX_ANGLE, out["max_angle"])
         ext_launches += got["Ext-RT-MPC"]
         l2_launches += l2
-    return ext_launches, l2_launches
+    return ext_launches, l2_launches, fig3d_ext
+
+
+def _print_rows_vs_truth(app, rows, truth_path):
+    """Prints each arm's largest relative distance of its per-p mean RMS to
+    the JAX package's float64 interior-point rows, and its stopped runs
+    beside theirs (the `cuda` rows of the extended app sit 9-27% from the
+    truth: the ADMM's own distance, ``PERF.md`` 6)."""
+    with open(truth_path) as f:
+        truth = {r["p"]: r for r in json.load(f)["rows"]}
+    arms = sorted(k[4:] for k in rows[0] if k.startswith("rms_"))
+    for arm in arms:
+        d = max(abs(r["rms_" + arm] - truth[r["p"]]["rms_" + arm])
+                / truth[r["p"]]["rms_" + arm] for r in rows)
+        stops = sum(r["infeasible_" + arm] for r in rows)
+        stops_truth = sum(truth[r["p"]]["infeasible_" + arm] for r in rows)
+        print("%s --solver cuda, %s: per-p mean RMS at most %.4f relative "
+              "from %s; stopped runs %d (float64 IP %d)"
+              % (app, arm, d, os.path.basename(truth_path), stops,
+                 stops_truth))
 
 
 # Phase 15's arms: app module, arm label, the controller it needs
@@ -984,7 +1120,7 @@ def phase_estimate_w(sc, dev):
 
 def phase_animations(setups):
     """Phase 22: ``create_animations.run`` under ``--solver cuda`` at full
-    T, K1 at B=1 on the cartpole QPs (2 launches a step on each arm), the
+    T, K1 at B=1 on the cartpole QPs ("fac", 2 launches a step on each arm), the
     JAX app's checks; no rendering.  Gated: both arms finite, the tube
     arm's |phi| < 0.3.  The tracking arm's |phi| bound is printed, not
     gated: the non-robust arm reaches it under ADMM in float64 on the CPU
@@ -1000,9 +1136,9 @@ def phase_animations(setups):
     torch.cuda.synchronize()
     T = out["traj"]["tube"].shape[0] - 1
     print("create_animations --solver cuda: T=%d, seconds %s, launches %s "
-          "(l2 path %d); checks %s"
+          "(by path %s); checks %s"
           % (T, {k: round(v, 3) for k, v in out["seconds"].items()},
-             out["launches"], admm_solve_cuda.launches_by_path["l2"],
+             out["launches"], dict(admm_solve_cuda.launches_by_path),
              "pass" if out["ok"] else
              "FAIL (printed; the tracking arm's |phi| bound is not gated)"))
     _require(all(bool(np.isfinite(t).all()) for t in out["traj"].values()),
@@ -1010,23 +1146,25 @@ def phase_animations(setups):
     _require(out["max_phi"]["tube"] < 0.3, out["max_phi"])
     _require(out["launches"] == {"tube": 2 * T, "track": 2 * T},
              out["launches"])
-    _require(admm_solve_cuda.launches_by_path["l2"] == 4 * T)
-    return 4 * T
+    fac = admm_solve_cuda.launches_by_path["fac"]
+    _require(fac == admm_solve_cuda.launches == 4 * T, fac)
+    return fac
 
 
 def phase_k1_cluster_b1(sc, setups, dev):
-    """K1's cluster path at B=1, the shape of ``create_animations`` and of
-    Fig. 3d under ``--solver cuda`` (the tube QP, 200 iterations): its time
-    beside the plain version's, its bound and ``torch.mm``.  (Its errors
-    against the plain version at B=1 are phase 8's.)"""
+    """K1 at B=1 on the cartpole tube QP, the shape of ``create_animations``
+    and of Fig. 3d under ``--solver cuda`` (200 iterations; the "fac"
+    path): its time beside the cluster path's in the same call, the plain
+    version's, its bound and ``torch.mm``.  (Its errors against the plain
+    version at B=1 are phase 8's.)"""
     from rtmpc_tpu_torch.apps.common import ADMM_SCHEDULE
     spec = setups["tube"].to_device(torch.float32, dev, solver="cuda",
                                     **ADMM_SCHEDULE)[0].admm
     th = _cartpole_thetas(sc, 1, np.random.default_rng(22), dev,
                           torch.float32)
     n_p, m_p = spec.Kinv.shape[0], spec.As.shape[0]
-    return _timed_phase("cartpole tube %d+%d" % (n_p, m_p), 1, spec, th,
-                        CP_ITERS, dev, 20)
+    return _fac_timing("cartpole tube %d+%d" % (n_p, m_p), 1, spec, th,
+                       CP_ITERS, dev)
 
 
 # Phase 23, the condensed QPs.
@@ -1067,7 +1205,8 @@ def phase_condensed_flagship(setup, dev):
     a step, feasible, finite, the tube invariant at every step, and its
     first B_PARITY rollouts within DX_PARITY of a float64 CPU run of
     solver "admm" on the same condensed QP.  Returns the launches, the
-    largest error and the timings at B=16384 and B=1."""
+    errors at B=16384 (smem path) and at B=1 ("fac"), and the timings at
+    both (at B=1 with the smem path's time in the same call)."""
     from rtmpc_tpu_torch.ops.qp_cuda import (admm_solve_cuda, kernel_path)
     from rtmpc_tpu_torch.parallel import make_batched_rollout
     kw = dict(iters=ITERS, iters2=ITERS2, alpha=ALPHA, rho2_scale=RHO2_SCALE)
@@ -1090,14 +1229,13 @@ def phase_condensed_flagship(setup, dev):
                    (Z_ATOL, COND_Y_ATOL, COND_RPRIM_ATOL),
                    label="condensed flagship")
     th1 = theta(1)
-    err = max(err, _compare(specs, specs64, th1, th1, True, (ITERS, ITERS2),
-                            (Z_ATOL, COND_Y_ATOL, COND_RPRIM_ATOL),
-                            label="condensed flagship",
-                            f64_bars=COND_F64_SMALL_B))
+    err1 = _compare(specs, specs64, th1, th1, True, (ITERS, ITERS2),
+                    (Z_ATOL, COND_Y_ATOL, COND_RPRIM_ATOL),
+                    label="condensed flagship", f64_bars=COND_F64_SMALL_B)
     full = _timed_phase("condensed flagship %d+%d" % (n_p, m_p), B_FULL,
                         a32.admm, thf, ITERS, dev, 20)
-    b1 = _timed_phase("condensed flagship %d+%d" % (n_p, m_p), 1, a32.admm,
-                      th1, ITERS, dev, 50)
+    b1 = _fac_timing("condensed flagship %d+%d" % (n_p, m_p), 1, a32.admm,
+                     th1, ITERS, dev, reps=50)
 
     theta_, gamma, w = _inputs(B_FULL, dev, seed=23)
     refs = _bench_refs(B_FULL, dev, torch.float32)
@@ -1145,7 +1283,7 @@ def phase_condensed_flagship(setup, dev):
     _require(viol <= TUBE_TOL, viol)
     _require(dx <= DX_PARITY and dx64 <= bar64, (dx, dx64, bar64))
     _require(torch.equal(ok_.Theta.cpu(), o64.Theta))
-    return launches, err, full, b1
+    return launches, (err, err1), full, b1
 
 
 def phase_condensed_cartpole(sc, setups, dev):
@@ -1153,8 +1291,9 @@ def phase_condensed_cartpole(sc, setups, dev):
     a cluster) against its plain version at B=200 and B=1, each timed at
     B=200; then a condensed RT-MPC closed loop through the kernel, B=200
     rollouts of T_COND_CP steps on the sweep's draws: 2 launches a step,
-    finite.  Returns the launches, the largest error and the tracking
-    QP's timing."""
+    finite.  Returns the launches, the largest error at B=200 (cluster
+    path) and the tube QP's at B=1 ("fac"), the tracking QP's timing and
+    the tube QP's at B=1."""
     from rtmpc_tpu_torch.apps.common import ADMM_SCHEDULE
     from rtmpc_tpu_torch.ops.kernel_bench import (COND_CP_F64_SMALL_B,
                                                   COND_CP_Y_ATOL, CP_Z_ATOL)
@@ -1163,7 +1302,7 @@ def phase_condensed_cartpole(sc, setups, dev):
     from rtmpc_tpu_torch.parallel import make_batched_rollout
     from rtmpc_tpu_torch.parallel.mc import draw_sweep
     rng = np.random.default_rng(24)
-    err, timing, frozen = 0.0, {}, {}
+    err, err1, timing, frozen = 0.0, 0.0, {}, {}
     for name in ("tube", "track"):
         a32, c32, (specs, specs64) = _condensed_qps(setups[name], dev,
                                                     **ADMM_SCHEDULE)
@@ -1177,14 +1316,23 @@ def phase_condensed_cartpole(sc, setups, dev):
                  (name, n_p, m_p, rows))
         for B in (B_COND_CP, 1):
             th = _cartpole_thetas(sc, B, rng, dev, torch.float32)
-            err = max(err, _compare(
+            e = _compare(
                 specs, specs64, th, th, B > 1, (CP_ITERS, CP_ITERS),
                 (CP_Z_ATOL, COND_CP_Y_ATOL), label="condensed %s" % name,
-                f64_bars=COND_CP_F64_SMALL_B if B == 1 else None))
+                f64_bars=COND_CP_F64_SMALL_B if B == 1 else None)
+            if B > 1:
+                err = max(err, e)
+            elif name == "tube":
+                err1 = e
         th = _cartpole_thetas(sc, B_COND_CP, rng, dev, torch.float32)
         timing[name] = _timed_phase("condensed cartpole %s %d+%d"
                                     % (name, n_p, m_p), B_COND_CP,
                                     a32.admm, th, CP_ITERS, dev, 5)
+        if name == "tube":
+            th = _cartpole_thetas(sc, 1, rng, dev, torch.float32)
+            timing["tube B=1"] = _fac_timing(
+                "condensed cartpole tube %d+%d" % (n_p, m_p), 1, a32.admm,
+                th, CP_ITERS, dev)
     a32, c32 = frozen["tube"]
     g = torch.Generator(device="cpu").manual_seed(24)
     d = draw_sweep(g, T_COND_CP, B_COND_CP // 10, [0.1 * i for i in range(10)],
@@ -1211,7 +1359,7 @@ def phase_condensed_cartpole(sc, setups, dev):
                                    viol))
     _require(launches == 2 * T_COND_CP, launches)
     _require(bool(torch.isfinite(outs.x).all()))
-    return launches, err, timing["track"]
+    return launches, (err, err1), timing["track"], timing["tube B=1"]
 
 
 # Phase 24, data parallelism over rollouts.  On one card two ranks share
@@ -1653,13 +1801,17 @@ def main():
                   replaces="rtmpc_tpu/ops/qp_pallas.py:106")
     kernels = []
 
-    def record(name, launches, err, ms, plain_ms, bound):
+    def record(name, path, launches, err, ms, plain_ms, bound, before=None):
         # library_ms: no single PyTorch call computes an ADMM phase; the
-        # time of its products alone in torch.mm is library_product_ms
+        # time of its products alone in torch.mm is library_product_ms.
+        # before_ms: a "fac" shape's time on the composite path of its
+        # width in the same call
         kernels.append(dict(
-            kernel, name=name, launches=launches, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
-            library_ms=None, library_product_ms=bound[2]))
+            kernel, name=name, path=path, launches=launches, max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+            library_ms=None, library_product_ms=bound[2], before_ms=before))
+        if path == "fac":
+            kernels[-1]["source"] = "rtmpc_tpu_torch/csrc/admm_factored.cu"
 
     _reset_launches()
     err, ms, plain_ms, bound = phase_kernel_vs_plain(arrays, arrays64, dev)
@@ -1667,15 +1819,15 @@ def main():
     check_shapes(WIDTH_SHAPES, dev)
     launches, _ = phase_full_loop(arrays, cfg, dev)
     phase_parity(setup, arrays, cfg, dev)
-    record("admm_solve_cuda (admm_kernel, n_p+m_p <= 192)", launches, err,
-           ms, plain_ms, bound)
+    record("admm_solve_cuda (admm_kernel, n_p+m_p <= 192)", "smem", launches,
+           err, ms, plain_ms, bound)
 
     # the single-instance controllers
     t0 = time.perf_counter()
     served, captured = phase_served_session(setup)
     b1 = phase_k1_b1(arrays, arrays64, dev)
-    record("admm_solve_cuda (admm_kernel at B=1: the served session)",
-           served, *b1)
+    record("admm_solve_cuda (admm_kernel_factored at B=1: the served "
+           "session, 40+112)", "fac", served, *b1[:4], before=b1[4])
     kernels[-1]["launches_counted_as"] = (
         "%d captured a window x %d replays of its CUDA graph"
         % (captured, served // captured))
@@ -1689,6 +1841,10 @@ def main():
     by_arm = phase_cartpole_kernel(
         sc, {arm: _admm_qps(st, dev)[""] for arm, st in setups.items()},
         dev, (CP_Z_ATOL, CP_Y_ATOL), CP_F64_SMALL_B, seed=8)
+    t0 = time.perf_counter()
+    phase_crossover(arrays.admm,
+                    _admm_qps(setups["tube"], dev)[""][0][0], dev)
+    print("crossover sweep took %.1f s" % (time.perf_counter() - t0))
     sweep = phase_sweep(
         "ip_riccati",
         os.path.join(out_dir, "results_linear_ip_riccati.json"), setups,
@@ -1702,22 +1858,25 @@ def main():
     torch.cuda.synchronize()
     launches_l2 = admm_solve_cuda.launches_by_path["l2"]
     counts = out["counts"]
-    print("phase 11 kernel launches: %s (l2 path %d)"
+    print("phase 11 kernel launches: %s (by path %s)"
           % ({arm: c["kernel_launches"] for arm, c in counts.items()},
-             launches_l2))
+             admm_solve_cuda.launches_by_path))
     T_sweep = out["payload"]["T"]
     _require(counts["tube"]["kernel_launches"] == 2 * T_sweep, counts)
     _require(counts["track"]["kernel_launches"] == 3 * T_sweep, counts)
-    _require(launches_l2 == 5 * T_sweep + FIG3D_LAUNCHES["results_linear"],
-             launches_l2)
+    # B=200 on the cluster path, Fig. 3d's B=1 ticks on "fac"
+    _require(launches_l2 == 5 * T_sweep, launches_l2)
+    _require(admm_solve_cuda.launches_by_path["fac"]
+             == FIG3D_LAUNCHES["results_linear"],
+             admm_solve_cuda.launches_by_path)
     _print_fig3d("results_linear --solver cuda", out["payload"])
     viol = _sample_tube_violation(out["tube"], out["arrays_tube"])
     print("tube invariant on the sample trajectories: max Hz(x - x_nom) "
           "- hz = %.3e (Z has %d rows)" % (viol, setups["tube"].Z.nrows))
     _require(viol <= TUBE_TOL, viol)
     record("admm_solve_cuda (admm_kernel_cluster, 192 < n_p+m_p <= 1024: "
-           "112+840)", launches_l2, max(v[0] for v in by_arm.values()),
-           *by_arm["track"][1:])
+           "112+840)", "l2", launches_l2, _err_of(by_arm, path="l2"),
+           *by_arm["track"][1:4])
 
     # the extended arm and the nonlinear plant
     t0 = time.perf_counter()
@@ -1729,11 +1888,20 @@ def main():
                                  ext.template.m, ext.template_pr.m))
     by_qp = phase_cartpole_kernel(sc, _admm_qps(ext, dev, pr=True), dev,
                                   (EXT_Z_ATOL, EXT_Y_ATOL), EXT_F64_SMALL_B,
-                                  seed=13)
-    ext_launches, _ = phase_new_apps_cuda(setups, out_dir)
-    record("admm_solve_cuda (admm_kernel_cluster, 1024 < n_p+m_p <= 2048: "
-           "112+1648)", ext_launches, max(v[0] for v in by_qp.values()),
-           *by_qp["normal"][1:])
+                                  seed=13, time_b1=True)
+    ext_launches, _, fig3d_ext = phase_new_apps_cuda(setups, out_dir)
+    record("admm_solve_cuda (admm_kernel_factored above 1024 columns: "
+           "extended 112+1648, B=200)", "fac", ext_launches,
+           _err_of(by_qp, B=200), *by_qp["normal"][1:4],
+           before=by_qp["normal"][4])
+    record("admm_solve_cuda (admm_kernel_factored, extended 112+1648, B=1: "
+           "Fig. 3d's Ext-RT-MPC tick)", "fac", fig3d_ext,
+           _err_of(by_qp, B=1), *by_qp["normal B=1"][1:4],
+           before=by_qp["normal B=1"][4])
+    kernels[-1]["launches_counted_as"] = (
+        "through the wrapper in phase 14's Ext-RT-MPC arm of Fig. 3d (the "
+        "warm-up tick and the captured tick of its one-tick graph); each of "
+        "the graph's replays runs the captured ones")
     x_nom = phase_new_f64_side_by_side(out_dir)
     # phase 9, on the nominal states of the last arm (RT-MPC, float64)
     phase_ip_card_vs_cpu(sc, fig3a, dev, x_nom)
@@ -1749,18 +1917,28 @@ def main():
     print("phase 21 took %.1f s" % (time.perf_counter() - t0))
     t0 = time.perf_counter()
     anim_launches = phase_animations(fig3a)
-    record("admm_solve_cuda (admm_kernel_cluster at B=1: create_animations "
-           "and Fig. 3d under --solver cuda, 112+792 and 112+840)",
-           anim_launches, max(v[0] for v in by_arm.values()),
-           *phase_k1_cluster_b1(sc, fig3a, dev))
+    ms, plain_ms, bound, before = phase_k1_cluster_b1(sc, fig3a, dev)
+    record("admm_solve_cuda (admm_kernel_factored at B=1: create_animations "
+           "and Fig. 3d under --solver cuda, 112+792 and 112+840)", "fac",
+           anim_launches, _err_of(by_arm, B=1), ms, plain_ms, bound,
+           before=before)
     print("phase 22 took %.1f s" % (time.perf_counter() - t0))
     t0 = time.perf_counter()
-    launches, err, full, _ = phase_condensed_flagship(setup, dev)
-    record("admm_solve_cuda (admm_kernel, condensed flagship 16+96)",
+    # the condensed QPs at B=1 run in checks only: launches null
+    launches, (err, err1), full, b1 = phase_condensed_flagship(setup, dev)
+    record("admm_solve_cuda (admm_kernel, condensed flagship 16+96)", "smem",
            launches, err, *full)
-    launches, err, timing = phase_condensed_cartpole(sc, fig3a, dev)
+    record("admm_solve_cuda (admm_kernel_factored, condensed flagship 16+96, "
+           "B=1)", "fac", None, err1, *b1[:3], before=b1[3])
+    kernels[-1]["launches_counted_as"] = "checked and timed only"
+    launches, (err, err1), timing, tube_b1 = phase_condensed_cartpole(
+        sc, fig3a, dev)
+    record("admm_solve_cuda (admm_kernel_factored, condensed cartpole tube "
+           "32+712, B=1)", "fac", None, err1, *tube_b1[:3],
+           before=tube_b1[3])
+    kernels[-1]["launches_counted_as"] = "checked and timed only"
     record("admm_solve_cuda (admm_kernel_cluster, condensed cartpole 32+712 "
-           "and 32+760)", launches, err, *timing)
+           "and 32+760)", "l2", launches, err, *timing)
     print("phase 23 took %.1f s" % (time.perf_counter() - t0))
 
     # data parallelism over rollouts: each rank's counts from 0
@@ -1773,7 +1951,8 @@ def main():
                    (arrays64.admm, arrays64.admm2), th, th, True,
                    (ITERS, ITERS2), (Z_ATOL, Y_ATOL))
     record("admm_solve_cuda (admm_kernel, a rank's shard of the "
-           "data-parallel flagship sweep, B=%d)" % B_rank, dp_launches, err,
+           "data-parallel flagship sweep, B=%d)" % B_rank, "smem", dp_launches,
+           err,
            *_timed_phase("flagship 40+112, a rank's shard", B_rank,
                          arrays.admm, th, ITERS, dev, reps=20))
     kernels[-1]["launches_counted_as"] = (

@@ -417,17 +417,27 @@ def solve_time_stats(args, sc, arms: dict, T: int) -> dict:
     (arrays, cfg, actuator_mode)`` runs one T-tick rollout from the
     scenario's x0 on ``fig3d_inputs(args.seed, sc, T)``, one dispatch a
     tick (``parallel/latency.py:measure_step_latencies``); returns
-    ``latency_report``'s statistics by label."""
+    ``latency_report``'s statistics by label.  ``solve_time_stats.launches``
+    holds each arm's kernel launches by path in its timing (K1 launches
+    through the wrapper while a one-tick graph is warmed up and captured;
+    its replays launch nothing through it)."""
     from ..parallel import latency
     refs, w, theta, gamma = fig3d_inputs(args.seed, sc, T)
-    stats = {}
+    stats, solve_time_stats.launches = {}, {}
     for label, (arrays, cfg, mode) in arms.items():
+        before = dict(admm_solve_cuda.launches_by_path)
         lat = latency.measure_step_latencies(arrays, cfg, refs, w, theta,
                                              gamma, x0=sc.x0,
                                              actuator_mode=mode)
+        solve_time_stats.launches[label] = {
+            path: n - before[path]
+            for path, n in admm_solve_cuda.launches_by_path.items()}
         stats[label] = latency.latency_report(
             lat, f"per-step, dispatch-inclusive, {label}")
     return stats
+
+
+solve_time_stats.launches = {}
 
 
 def cartpole_controllers(sc, names) -> dict:

@@ -19,13 +19,25 @@
 // FP32 FMA issue (no tensor cores: the product stays FP32 FFMA with FP32
 // accumulation); the designs differ in where [Gxc; Gsc] lives.
 //
-// The composite form is a choice: the factored form xt = (sigma x - q +
-// (rho z - y) As) Kinv', zt = xt As' needs 2 (n^2 + 2 n m) flops a row an
-// iteration, 2.2x fewer on the flagship and 4.3-4.5x fewer on the cartpole
-// QPs, but it is three dependent products an iteration (three barriers, or
-// three exchanges across a cluster) where this is one.  The FP32 bound that
-// ops/kernel_bench.py states counts the factored form's operations, so these
-// kernels cannot reach it as they are built.
+// The composite form is a choice for large batches: the factored form xt =
+// (sigma x - q + (rho z - y) As) Kinv', zt = xt As' needs 2 (n^2 + 2 n m)
+// flops a row an iteration, 2.2x fewer on the flagship, 4.3-4.5x fewer on
+// the cartpole QPs and 8.1x at 1760 columns, but it is three dependent
+// products an iteration where this is one.  The two paths below keep the
+// composite; the FP32 bound that ops/kernel_bench.py states counts the
+// factored form's operations, so they cannot reach it as they are built.
+// A third path, admm_kernel_factored<RC> in admm_factored.cu (path name
+// "fac"), runs the factored form with Kinv and the rows of As resident in
+// the shared memory of one block or of a cluster of 8, one exchange an
+// iteration.  The dispatch (admm_path, mirrored by
+// ops/qp_cuda.py:kernel_path) is a pure function of (B, n, m): "fac" takes
+// every launch whose operator fits its shared memory (factored_fits: Kinv
+// and a block's rows of As beside its buffers, at every rows a group it may
+// run: every controller's QP) with either B <= kFacMaxB (the served
+// session's and Fig. 3d's B=1; "fac" was the faster at every batch up to
+// it on the flagship and the cartpole tube QP) or n + m > 1024 (the
+// extended controller's 112 + 1648 at any B); the rest keep the composite
+// paths below.
 //
 // Small composites (nm <= 192, the flagship's 40 + 112): admm_kernel<RG>,
 // register-tiled, G in shared memory.
@@ -925,10 +937,56 @@ cudaError_t launch_small(RTMPC_ADMM_PARAMS, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-// Launches on the calling thread's current device (the caller makes it the
-// inputs' device).
-int solve_on_current_device(RTMPC_ADMM_PARAMS, cudaStream_t stream) {
+}  // namespace
+
+// admm_factored.cu: the "fac" path, whether its operator fits, and the rows
+// of its groups
+int factored_solve_on_current_device(
+    const float* __restrict__ theta, const float* __restrict__ x_in,
+    const float* __restrict__ y_in, const float* __restrict__ z_in,
+    const float* __restrict__ Kinv, const float* __restrict__ As,
+    const float* __restrict__ Ps, const float* __restrict__ Mq,
+    const float* __restrict__ Ml, const float* __restrict__ Mu,
+    const float* __restrict__ q0, const float* __restrict__ l0,
+    const float* __restrict__ u0, const float* __restrict__ rho,
+    const float* __restrict__ rho_inv, const float* __restrict__ alpha_p,
+    const float* __restrict__ sigma_p, float* __restrict__ x_out,
+    float* __restrict__ y_out, float* __restrict__ z_out,
+    float* __restrict__ r_prim, float* __restrict__ r_dual, int B, int n, int m,
+    int nt, int iters, cudaStream_t stream);
+bool factored_fits(int n, int m);
+int factored_rows_per_group(int B, int n, int m);
+
+namespace {
+
+// Path codes of the dispatch (and of rtmpc_admm_solve_f32_on_path).
+constexpr int kPathSmem = 1, kPathL2 = 2, kPathFac = 3;
+constexpr int kFacMaxB = 64;      // "fac" up to this batch at any width
+constexpr int kFacMinCols = 128 * kCluster + 1;  // and from here at any batch
+
+// The dispatch: a pure function of (B, n, m).
+int admm_path(int B, int n, int m) {
   const int nm = n + m;
+  if ((B <= kFacMaxB || nm >= kFacMinCols) && factored_fits(n, m)) return kPathFac;
+  return nm <= kMaxColsSmall ? kPathSmem : kPathL2;
+}
+
+// Launches on the calling thread's current device (the caller makes it the
+// inputs' device), on `path` (0: the dispatch's).  A composite path is
+// taken only at the widths the dispatch gives it.
+int solve_on_current_device(RTMPC_ADMM_PARAMS, const float* Kinv, const float* sigma,
+                            int path, cudaStream_t stream) {
+  const int nm = n + m;
+  if (path == 0) path = admm_path(B, n, m);
+  if (path == kPathFac) {
+    if (!factored_fits(n, m)) return (int)cudaErrorInvalidValue;
+    return factored_solve_on_current_device(
+        theta, x_in, y_in, z_in, Kinv, As, Ps, Mq, Ml, Mu, q0, l0, u0, rho,
+        rho_inv, alpha_p, sigma, x_out, y_out, z_out, r_prim, r_dual, B, n, m,
+        nt, iters, stream);
+  }
+  if (path != (nm <= kMaxColsSmall ? kPathSmem : kPathL2))
+    return (int)cudaErrorInvalidValue;
   if (nm > kMaxColsSmall) {
     const bool vec = nm % 4 == 0 && ((uintptr_t)Gxc | (uintptr_t)Gsc | (uintptr_t)Kcat) % 16 == 0;
     if (nm <= 128 * kCluster) {
@@ -946,6 +1004,21 @@ int solve_on_current_device(RTMPC_ADMM_PARAMS, cudaStream_t stream) {
                               small_smem_floats(n, m, 32) * sizeof(float), stream);
 }
 
+int solve_on_device(RTMPC_ADMM_PARAMS, const float* Kinv, const float* sigma, int path,
+                    int device, void* stream_p) {
+  if (B <= 0 || n <= 0 || m <= 0 || nt < 0 || iters < 0 || n + m > kMaxColsLarge)
+    return (int)cudaErrorInvalidValue;
+  int caller = 0;
+  cudaError_t err = cudaGetDevice(&caller);
+  if (err != cudaSuccess) return (int)err;
+  if (caller != device && (err = cudaSetDevice(device)) != cudaSuccess) return (int)err;
+  const int rc = solve_on_current_device(RTMPC_ADMM_ARGS, Kinv, sigma, path,
+                                         (cudaStream_t)stream_p);
+  if (caller != device && (err = cudaSetDevice(caller)) != cudaSuccess && rc == 0)
+    return (int)err;
+  return rc;
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  Launches one solve of `iters`
@@ -954,26 +1027,37 @@ int solve_on_current_device(RTMPC_ADMM_PARAMS, cudaStream_t stream) {
 // runs, so the caller must check.  The calling thread's current device is
 // the same on return as on entry (a data-parallel rank on another card than
 // its thread's current one must not have that device switched under it).
-// n + m <= 192 runs admm_kernel (G in shared memory; 64 rows a block where
-// they fit beside G, else 32), n + m <= 2048 admm_kernel_cluster (G from L2;
-// 16 rows a cluster up to 1024 columns, 8 above); a larger QP is refused.
-extern "C" int rtmpc_admm_solve_f32(RTMPC_ADMM_PARAMS, int device, void* stream_p) {
-  if (B <= 0 || n <= 0 || m <= 0 || nt < 0 || iters < 0 || n + m > kMaxColsLarge)
-    return (int)cudaErrorInvalidValue;
-  int caller = 0;
-  cudaError_t err = cudaGetDevice(&caller);
-  if (err != cudaSuccess) return (int)err;
-  if (caller != device && (err = cudaSetDevice(device)) != cudaSuccess) return (int)err;
-  const int rc = solve_on_current_device(RTMPC_ADMM_ARGS, (cudaStream_t)stream_p);
-  if (caller != device && (err = cudaSetDevice(caller)) != cudaSuccess && rc == 0)
-    return (int)err;
-  return rc;
+// The path is the dispatch's (admm_path): "fac" (admm_factored.cu) where its
+// operator fits and B <= 64 or n + m > 1024; else n + m <= 192 runs admm_kernel (G
+// in shared memory; 64 rows a block where they fit beside G, else 32), n +
+// m <= 2048 admm_kernel_cluster (G from L2; 16 rows a cluster up to 1024
+// columns, 8 above); a larger QP is refused.  Kinv and sigma are the
+// factored form's (the composite paths read Gxc, Gsc and Kcat instead).
+extern "C" int rtmpc_admm_solve_f32(RTMPC_ADMM_PARAMS, const float* Kinv,
+                                    const float* sigma, int device, void* stream_p) {
+  return solve_on_device(RTMPC_ADMM_ARGS, Kinv, sigma, 0, device, stream_p);
 }
 
-// Rows a block (small path) or a cluster (large path) for composites n + m
-// wide: the batch sizes around it are what the ragged-tail tests use.
-extern "C" int rtmpc_admm_rows_per_group(int n, int m) {
+// The same on a path the caller names (1 "smem", 2 "l2", 3 "fac"), for
+// timing one path against another at the same shape; a composite path is
+// refused at the widths the dispatch does not give it, "fac" where its
+// operator does not fit.  Not on the main path.
+extern "C" int rtmpc_admm_solve_f32_on_path(RTMPC_ADMM_PARAMS, const float* Kinv,
+                                            const float* sigma, int path, int device,
+                                            void* stream_p) {
+  if (path < kPathSmem || path > kPathFac) return (int)cudaErrorInvalidValue;
+  return solve_on_device(RTMPC_ADMM_ARGS, Kinv, sigma, path, device, stream_p);
+}
+
+// The dispatch's path code at (B, n, m), for holding the Python mirror to it.
+extern "C" int rtmpc_admm_path(int B, int n, int m) { return admm_path(B, n, m); }
+
+// Rows a block (smem path), a cluster (l2 path) or a group ("fac" path)
+// owns at (B, n, m); B <= 0: the composite path that the width n + m gives.
+// The batch sizes around it are what the ragged-tail tests use.
+extern "C" int rtmpc_admm_rows_per_group(int n, int m, int B) {
   const int nm = n + m;
+  if (B > 0 && admm_path(B, n, m) == kPathFac) return factored_rows_per_group(B, n, m);
   if (nm > kMaxColsSmall) return nm <= 128 * kCluster ? 16 : 8;
   const int nchunks = (((nm + 3) / 4) + 7) / 8;
   const bool r64 = small_smem_floats(n, m, 64) * sizeof(float) <= kSmemLimit &&

@@ -2,18 +2,23 @@
 
     python3 -m rtmpc_tpu_torch.ops.kernel_bench
 
-Builds the kernel, holds it against its plain PyTorch version on random
-QPs (``qp_cuda._synthetic_spec``) at the shapes of the main paths (the
-flagship's 40 + 112 columns at B=16384 and, for the served session, at
-B=1, the cartpole's 112 + 792 and
-112 + 840 and the extended controller's 112 + 1648 at B=200), at the widest
-shape of each path and at ragged and tiny batches, and times one phase at
-the main shapes with CUDA events beside
+Builds the kernel, holds it against the plain PyTorch version of the path
+it takes on random QPs (``qp_cuda._synthetic_spec``) at the shapes of the
+main paths (the flagship's 40 + 112 columns at B=16384 and, for the
+served session, at B=1, the cartpole's 112 + 792 and 112 + 840 and the
+extended controller's 112 + 1648 at B=200), at the widest shape of each
+path and at ragged and tiny batches, times one phase at the main shapes
+with CUDA events beside
 
 * the FP32 bound of the same work (``roofline_ms``), and
 * ``iters`` back-to-back ``torch.mm`` calls ``(B, n+m) @ (n+m, n+m)`` in
   float32 with TF32 off: the library's time for the product alone, a lower
-  yardstick than the kernel's whole function.
+  yardstick than the kernel's whole function, and
+* the composite path's time at the same shape (the "before" of the
+  ``"fac"`` path's shapes),
+
+and prints the crossover of the ``"fac"`` path against the composite
+paths over small batches (``crossover``).
 
 A kernel's speed does not depend on the QP's data, so random QPs of the
 right shape stand in for the controllers (whose setup takes minutes).
@@ -114,6 +119,29 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_time_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured into one
+    CUDA graph (after a warm-up call), the graph replayed once to warm up
+    and once under CUDA events, divided by ``reps``.  Unlike ``time_ms`` it
+    leaves out the host's time to issue a call, which bounds a short phase
+    when it is timed call by call."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def sm_clock_under(fn, reps: int) -> str:
     """``clocks.sm, clocks.max.sm`` as ``nvidia-smi`` reads them while
     ``reps`` queued calls of ``fn`` (a second or two of work) keep the card
@@ -194,7 +222,8 @@ def _max_err(a, b) -> float:
 def compare_with_plain(spec1, spec2, th1, th2, iters, bars=(Z_ATOL, Y_ATOL),
                        *, warm_from_kernel=False, specs64=None,
                        f64_bars=None) -> dict:
-    """The one comparison of the kernel with its plain version: a cold
+    """The one comparison of the kernel with its plain version (that of the
+    path the launch takes, ``qp_cuda._admm_solve_plain``): a cold
     phase of ``iters[0]`` iterations on ``spec1``, then ``iters[1]`` warm
     ones on ``spec2`` from one shared state (the kernel's phase-1 iterate,
     as on the main paths, or the plain version's).
@@ -206,25 +235,30 @@ def compare_with_plain(spec1, spec2, th1, th2, iters, bars=(Z_ATOL, Y_ATOL),
     ``specs64`` (the two specs in float64) both are also held against the
     plain version in float64: the kernel's error at most ``F64_RATIO``
     times plain float32's own, or, where ``f64_bars`` gives absolute (z, y)
-    bars, within those.  Returns the errors (``cold_z`` ... and, against
-    float64, ``f64_cold_z`` / ``plain_f64_cold_z`` ...)."""
-    from .qp_cuda import _admm_solve_cuda_plain, admm_solve_cuda
+    bars, within those (on the ``"fac"`` path within either: its plain
+    float32 version, the factored form, is itself up to 3x further from
+    float64 than the composite form's at small batches of the cartpole
+    QPs, where rho = 500 scales the equality rows' y into the product).
+    Returns the errors (``cold_z`` ... and, against float64,
+    ``f64_cold_z`` / ``plain_f64_cold_z`` ...)."""
+    from .qp_cuda import _admm_solve_plain, _spec_path, admm_solve_cuda
     it1, it2 = iters
     k1 = admm_solve_cuda(spec1, th1, None, it1)
-    p1 = _admm_solve_cuda_plain(spec1, th1, None, it1)
+    p1 = _admm_solve_plain(spec1, th1, None, it1)
     start = k1.state if warm_from_kernel else p1.state
     k2 = admm_solve_cuda(spec2, th2, start, it2)
-    p2 = _admm_solve_cuda_plain(spec2, th2, start, it2)
+    p2 = _admm_solve_plain(spec2, th2, start, it2)
     d1 = d2 = None
     if specs64 is not None:
-        d1 = _admm_solve_cuda_plain(specs64[0], th1.double(), None, it1)
-        d2 = _admm_solve_cuda_plain(
+        d1 = _admm_solve_plain(specs64[0], th1.double(), None, it1)
+        d2 = _admm_solve_plain(
             specs64[1], th2.double(),
             type(start)(*(t.double() for t in start)), it2)
     if th1.is_cuda:
         torch.cuda.synchronize()
     B, (z_bar, y_bar, *rp) = th1.shape[0], bars
     rp_bar = rp[0] if rp else z_bar
+    fac = _spec_path(spec1, B) == "fac"
     errs = {}
 
     def require(ok, *what):
@@ -249,8 +283,11 @@ def compare_with_plain(spec1, spec2, th1, th2, iters, bars=(Z_ATOL, Y_ATOL),
             require(errs[key] <= bar, key, bar)
             if specs64 is None:
                 continue
+            ratio_bar = F64_RATIO * errs["plain_f64_" + key] + 1e-6
             if f64_bars is None:
-                bar64 = F64_RATIO * errs["plain_f64_" + key] + 1e-6
+                bar64 = ratio_bar
+            elif fac:
+                bar64 = max(f64_bars[key.endswith("_y")], ratio_bar)
             else:
                 bar64 = f64_bars[key.endswith("_y")]
             require(errs["f64_" + key] <= bar64, "f64_" + key, bar64)
@@ -269,7 +306,8 @@ def ragged_batches(rows: int):
 def check_shapes(shapes, device, iters: int = 50) -> None:
     """Holds the kernel to its plain version on a random QP of each
     ``(n_p, m_p)`` at tiny and ragged batches around the rows one thread
-    block (or cluster) owns there, and prints the errors."""
+    block (or cluster) of its composite path owns there, and prints the
+    errors and the path each batch takes."""
     from .qp_cuda import _synthetic_spec, kernel_path, kernel_rows
     for n_p, m_p in shapes:
         spec = _synthetic_spec(n_p, m_p, 4, seed=n_p + m_p, device=device)
@@ -279,17 +317,66 @@ def check_shapes(shapes, device, iters: int = 50) -> None:
             e = compare_with_plain(spec, spec, th, th, (iters, iters))
             print("random QP %d+%d (%s path, %d rows a group) B=%d: kernel "
                   "vs plain dz %.3e dy %.3e dr %.3e"
-                  % (n_p, m_p, kernel_path(n_p + m_p), rows, B,
+                  % (n_p, m_p, kernel_path(n_p + m_p, B, n_p),
+                     kernel_rows(n_p, m_p, B), B,
                      max(e["cold_z"], e["warm_z"]),
                      max(e["cold_y"], e["warm_y"]),
                      max(e[k] for k in e if "_r" in k)))
 
 
+def path_ms(spec, th, iters: int, path: str, reps: int) -> float:
+    """One phase's device time on a named path
+    (``qp_cuda._admm_solve_cuda_on_path``): ``graph_time_ms``."""
+    from .qp_cuda import _admm_solve_cuda_on_path
+    return graph_time_ms(lambda: _admm_solve_cuda_on_path(spec, th, None,
+                                                          iters, path), reps)
+
+
+# Batches of the crossover sweep of the "fac" path against the composite
+# paths; qp_cuda.FAC_MAX_B is its upper end, and chip_smoke.py fails where
+# "fac" is not the faster at every one of them
+CROSSOVER_BATCHES = (1, 2, 4, 8, 16, 32, 64)
+
+
+def crossover(specs, iters, device, batches=CROSSOVER_BATCHES,
+              reps: int = 5) -> dict:
+    """Times one phase of ``iters[label]`` iterations on the ``"fac"`` path
+    and on the composite path of the width, in turns (composite, fac, fac,
+    composite), at each batch, for each ``label: spec``; prints a table.
+    Returns ``{label: [(B, fac ms, composite ms), ...]}`` and the largest B
+    up to which ``"fac"`` is the faster on every shape (``"b_star"``)."""
+    from .qp_cuda import kernel_path
+    out, b_star = {}, None
+    for label, spec in specs.items():
+        n_p, m_p = spec.Kinv.shape[0], spec.As.shape[0]
+        old = kernel_path(n_p + m_p)
+        rows = []
+        for B in batches:
+            th = thetas(B, spec.Mq.shape[1], B, device)
+            t = {old: [], "fac": []}
+            for path in (old, "fac", "fac", old):
+                t[path].append(path_ms(spec, th, iters[label], path, reps))
+            rows.append((B, float(np.mean(t["fac"])),
+                         float(np.mean(t[old]))))
+            print("crossover %s (%d+%d, %d iterations) B=%d: fac %.4f ms, "
+                  "%s %.4f ms" % (label, n_p, m_p, iters[label], B,
+                                  rows[-1][1], old, rows[-1][2]))
+        out[label] = rows
+        wins = 0
+        for B, fac, comp in rows:
+            if fac >= comp:
+                break
+            wins = B
+        b_star = wins if b_star is None else min(b_star, wins)
+    out["b_star"] = b_star
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("kernel_bench: no CUDA device")
-    from .qp_cuda import (_admm_solve_cuda_plain, _synthetic_spec,
-                          admm_solve_cuda, build_kernel)
+    from .qp_cuda import (_admm_solve_plain, _synthetic_spec, admm_solve_cuda,
+                          build_kernel, kernel_path)
     dev = torch.device("cuda", 0)
     name = card()
     print(name)
@@ -306,22 +393,29 @@ def main() -> int:
         e = compare_with_plain(spec, spec, th, th, (iters, iters))
         t = {"plain": [], "kernel": []}
         for which in ("plain", "kernel", "kernel", "plain"):
-            fn = admm_solve_cuda if which == "kernel" else \
-                _admm_solve_cuda_plain
+            fn = admm_solve_cuda if which == "kernel" else _admm_solve_plain
             t[which].append(time_ms(lambda: fn(spec, th, None, iters), 5))
+        path, old = kernel_path(n_p + m_p, B, n_p), kernel_path(n_p + m_p)
         bound, by = roofline_ms(B, n_p, m_p, nt, iters)
         clock = sm_clock_under(lambda: admm_solve_cuda(spec, th, None, iters),
                                int(2000 / np.mean(t["kernel"])))
-        row = dict(shape=label, B=B, iters=iters,
+        row = dict(shape=label, B=B, iters=iters, path=path,
                    dz=max(e["cold_z"], e["warm_z"]),
                    dy=max(e["cold_y"], e["warm_y"]),
                    kernel_ms=t["kernel"], plain_ms=t["plain"],
+                   before_ms=(path_ms(spec, th, iters, old, 5)
+                              if path != old else None),
                    mm_product_ms=mm_product_ms(B, n_p + m_p, iters, dev),
                    bound_ms=bound, bound_by=by,
                    share_of_bound=bound / float(np.mean(t["kernel"])),
                    composite_over_factored=composite_over_factored(n_p, m_p),
                    sm_clock_under_kernel=clock, card=name)
         print(json.dumps(row))
+    crossover({"flagship 40+112": _synthetic_spec(40, 112, 4, seed=1,
+                                                  device=dev),
+               "cartpole tube 112+792": _synthetic_spec(112, 792, 8, seed=1,
+                                                        device=dev)},
+              {"flagship 40+112": 60, "cartpole tube 112+792": 200}, dev)
     return 0
 
 

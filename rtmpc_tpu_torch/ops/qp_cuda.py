@@ -1,27 +1,44 @@
 """Fused batched ADMM solve on the GPU (counterpart of ``rtmpc_tpu/ops/qp_pallas.py``).
 
 ``admm_solve_cuda`` runs a whole fixed-count ADMM phase for a batch in one
-launch of the hand-written kernel ``csrc/admm_kernel.cu`` (the port of the
-Pallas kernel ``_admm_kernel``).  The kernel has two paths, picked by the
-width ``n_p + m_p`` of the composites: up to 192 columns [Gxc; Gsc] sits
-in shared memory and a thread accumulates an 8 x 4 register tile
-(``admm_kernel``, path ``"smem"``, the flagship's 40 + 112); up to 2048
-the columns are split over a cluster of 8 thread blocks that stream their
-slices of [Gxc; Gsc] from L2 and exchange the iterate through distributed
-shared memory (``admm_kernel_cluster``, path ``"l2"``, the cartpole's
-112 + 792 and 112 + 840).  On CPU tensors it runs
-``_admm_solve_cuda_plain``, the same composite-form iteration in batched
-``torch.matmul``; the CPU tests hold that plain version against the JAX
-package, and ``chip_smoke.py`` holds the kernel against it on the card.
+launch of the hand-written kernel K1 (``csrc/admm_kernel.cu`` and
+``csrc/admm_factored.cu``, the port of the Pallas kernel ``_admm_kernel``).
+K1 has three paths; the dispatch is a pure function of the batch ``B`` and
+the QP's ``n_p`` and ``m_p`` (``kernel_path`` mirrors it):
 
-The kernel is built from the source in this checkout at first use, with
-``nvcc`` for ``sm_90a``, into ``build/rtmpc_tpu_torch/`` next to the
-package; the library's file name carries a hash of the source and flags,
-so an edited source is rebuilt.  It is bound with ``ctypes`` (plain C
-interface, no PyTorch headers), launched on PyTorch's current stream, and
-never synchronised here.  ``admm_solve_cuda.launches`` counts kernel
-launches, and ``admm_solve_cuda.launches_by_path`` counts them per path
-(``"smem"``, ``"l2"``).
+* ``"fac"`` (``admm_kernel_factored``): the factored form ``xt = (sigma x
+  + (rho z - y) As) Kinv' - q Kinv'``, ``zt = xt As'``, with Kinv and the
+  rows of As resident in the shared memory of one block (the flagship) or
+  of a cluster of 8 blocks that split As's rows and exchange their partial
+  products once an iteration.  Where that operator fits (``_fac_fits``:
+  every controller's QP), it takes every launch with ``B <= FAC_MAX_B``
+  (the served session, Fig. 3d, the examples, ``create_animations``), and
+  every launch above 1024 columns (the extended controller's 112 + 1648)
+  at any B.
+* ``"smem"`` (``admm_kernel``): the composite form ``[xt | zt] = x Gxc +
+  (rho z - y) Gsc - q Kcat`` with [Gxc; Gsc] in shared memory and 8 x 4
+  register tiles, for the other launches up to 192 columns (the flagship at
+  B=16384).
+* ``"l2"`` (``admm_kernel_cluster``): the composite form with the columns
+  split over a cluster of 8 blocks that stream their slices of [Gxc; Gsc]
+  from L2, for the other launches up to 2048 columns (the cartpole's 112 +
+  792 and 112 + 840 at B=200).
+
+On CPU tensors it runs the plain PyTorch version of the path the card
+would take: ``_admm_solve_factored_plain`` for ``"fac"``,
+``_admm_solve_cuda_plain`` (the composite form) for the others, each in
+batched ``torch.matmul``; the CPU tests hold them against the JAX package,
+and ``chip_smoke.py`` holds the kernel against them on the card.
+
+The kernel is built from the sources in this checkout at first use, with
+``nvcc`` for ``sm_90a`` (one compiler process a source, side by side),
+into ``build/rtmpc_tpu_torch/`` next to the package; the library's file
+name carries a hash of the sources and flags, so an edited source is
+rebuilt.  It is bound with ``ctypes`` (plain C interface, no PyTorch
+headers), launched on PyTorch's current stream, and never synchronised
+here.  ``admm_solve_cuda.launches`` counts kernel launches, and
+``admm_solve_cuda.launches_by_path`` counts them per path (``"smem"``,
+``"l2"``, ``"fac"``).
 """
 
 from __future__ import annotations
@@ -44,15 +61,98 @@ from .qp import (ADMMSolution, ADMMSpec, ADMMState, init_admm_state,
 __all__ = ["admm_solve_cuda", "build_kernel", "kernel_path", "kernel_rows"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "admm_kernel.cu")
+_SRCS = tuple(os.path.join(_PKG_DIR, "csrc", f)
+              for f in ("admm_kernel.cu", "admm_factored.cu"))
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                           "rtmpc_tpu_torch")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _CUDA_HOME_DEFAULT = "/usr/local/cuda"
-# n_p + m_p limits of the kernel's two paths (kMaxColsSmall and
-# kMaxColsLarge in the source)
+# n_p + m_p limits of the composite paths (kMaxColsSmall and kMaxColsLarge
+# in the source)
 _PATH_LIMITS = (("smem", 192), ("l2", 2048))
+# The "fac" path: every launch whose operator fits (_fac_fits) with B <=
+# FAC_MAX_B or more than FAC_WIDE_COLS columns (kFacMaxB, kFacMinCols - 1 in
+# csrc/admm_kernel.cu).  FAC_MAX_B is the upper end of the batches the
+# crossover sweep times (kernel_bench.CROSSOVER_BATCHES): "fac" was the
+# faster at every one of them on the flagship and the cartpole tube QP
+# (PERF.md 6), and chip_smoke.py fails on a card where it is not.
+FAC_MAX_B = 64
+FAC_WIDE_COLS = 1024
+# "fac" runs one row a group with its intermediate arithmetic (the
+# products' sums, rho z - y, the right-hand side, xt, zt) in float64 over
+# the float32 state and operator on one block (m_p <= 256 and n_p <= 64)
+# and up to FAC_ONE_ROW_B rows on a cluster (kFacOneRowB, kOneBlockMaxN in
+# csrc/admm_factored.cu); its plain version does the same there.
+FAC_ONE_ROW_B = 15
+FAC_ONE_BLOCK_N = 64
+
+
+# The rest of the "fac" kernel's shared-memory layout (admm_factored.cu:
+# fac_layout), for _fac_fits: threads a block, blocks a cluster, rows of As
+# a block at most, and the bytes a block may use
+_FAC_THREADS, _FAC_CLUSTER, _FAC_MAX_SLICE = 256, 8, 256
+_FAC_SMEM_LIMIT = 232448 - 1024
+
+
+def _fac_one_row(B: int, n_p: int, m_p: int) -> bool:
+    return B <= FAC_ONE_ROW_B or (m_p <= 256 and n_p <= FAC_ONE_BLOCK_N)
+
+
+def _fac_blocks(n_p: int, m_p: int) -> int:
+    """Blocks a group of "fac": one where As has at most 256 rows and
+    n_p is at most 64, else a cluster of 8 (``fac_cl``)."""
+    return 1 if m_p <= _FAC_MAX_SLICE and n_p <= FAC_ONE_BLOCK_N else \
+        _FAC_CLUSTER
+
+
+def _fac_smem_bytes(n: int, m: int, rc: int) -> int:
+    """Dynamic shared memory of one block of "fac" at ``rc`` rows a group
+    (``fac_layout``): As's slice and Kinv at their padded strides, the 8
+    partials on a cluster, the iterate buffers (float64 at one row a
+    group) and the term slices' partial sums."""
+    def r4(v):
+        return (v + 3) & ~3
+
+    def ks_log2(units, K):                  # fac_ks_log2
+        up, s = (units + 31) & ~31, 0
+        while s < 3 and (_FAC_THREADS >> (s + 1)) >= up and K >= (16 << s):
+            s += 1
+        return s
+
+    cl = _fac_blocks(n, m)
+    ms, n4 = -(-m // cl), r4(n)
+    ld = (n | 1) if rc > 1 else (n4 if n4 % 8 == 4 else n4 + 4)   # fac_ld
+    kt = n4 if rc == 1 else n
+    R = min(rc, 8)
+    RG = rc // R
+    ms_last = m - (cl - 1) * ms
+    qf = 0
+    for units, K in ((RG * n, ms), (RG * n, ms_last), (RG * n, kt),
+                     (RG * ms, kt), (RG * ms_last, kt)):
+        ks = 1 << ks_log2(units, K)
+        qf = max(qf, ks * units * R if ks > 1 else 0)
+    vw = 2 if rc == 1 else 1
+    floats = (r4(ms * ld) + r4(n * (ld if rc == 1 else n))
+              + (_FAC_CLUSTER * n4 * rc * vw if cl > 1 else 0)
+              + r4(ms * rc * vw) + 2 * n4 * rc * vw + r4(qf * vw))
+    return 4 * floats
+
+
+def _fac_fits(n_p: int, m_p: int) -> bool:
+    """Whether "fac" takes a QP of this shape (``factored_fits``): no block
+    of a cluster would own fewer than no rows of As (m_p >= 7 ceil(m_p /
+    8): the kernel does not clamp its slices), its layout fits a block's
+    shared memory at every rows a group it may run (1 on one block; 1, 4
+    and 16 on a cluster), and n_p <= 256."""
+    cl = _fac_blocks(n_p, m_p)
+    if n_p > _FAC_MAX_SLICE or m_p < (cl - 1) * -(-m_p // cl):
+        return False
+    return all(_fac_smem_bytes(n_p, m_p, rc) <= _FAC_SMEM_LIMIT
+               for rc in ((1,) if cl == 1 else (1, 4, 16)))
+
+
+_PATH_CODES = {"smem": 1, "l2": 2, "fac": 3}
 
 
 def _find_nvcc() -> str:
@@ -74,64 +174,100 @@ def _find_nvcc() -> str:
 
 
 def build_kernel() -> Tuple[str, str]:
-    """Compile ``csrc/admm_kernel.cu`` unless a library built from the same
-    source and flags exists.  Returns ``(library path, compiler log)``; the
-    log (ptxas register/shared-memory report) is empty on a cache hit."""
-    with open(_SRC, "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode())
+    """Compile the kernel's sources (``csrc/admm_kernel.cu``,
+    ``csrc/admm_factored.cu``; one ``nvcc`` a source, side by side) and
+    link them into one library, unless one built from the same sources and
+    flags exists.  Returns ``(library path, compiler log)``; the log (ptxas
+    register/shared-memory report) is empty on a cache hit."""
+    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for path in _SRCS:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     lib = os.path.join(_BUILD_DIR,
                        f"libadmm_kernel_{digest.hexdigest()[:16]}.so")
     if os.path.exists(lib):
         return lib, ""
     nvcc = _find_nvcc()
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
+    tmp_dir = tempfile.mkdtemp(dir=_BUILD_DIR)
     try:
-        proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", tmp, _SRC],
+        objs = [os.path.join(tmp_dir, os.path.basename(p) + ".o")
+                for p in _SRCS]
+        procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-c", "-o", o, p],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(_SRCS, objs)]
+        log = ""
+        for p, proc in zip(_SRCS, procs):
+            out, _ = proc.communicate()
+            log += out
+            if proc.returncode != 0:
+                for other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) "
+                                   f"building {p}:\n{out}")
+        tmp = os.path.join(tmp_dir, "lib.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {_SRC}:\n"
-                f"{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) linking "
+                               f"{lib}:\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, lib)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib, proc.stdout + proc.stderr
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+    return lib, log + proc.stdout + proc.stderr
 
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     path, _ = build_kernel()
     lib = ctypes.CDLL(path)
-    fn = lib.rtmpc_admm_solve_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 23 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
+    # 23 pointers, B, n, m, nt, iters, Kinv, sigma[, path], device, stream
+    args = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    lib.rtmpc_admm_solve_f32.argtypes = args + [ctypes.c_int, ctypes.c_void_p]
+    lib.rtmpc_admm_solve_f32_on_path.argtypes = (
+        args + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.rtmpc_admm_path.argtypes = [ctypes.c_int] * 3
+    lib.rtmpc_admm_rows_per_group.argtypes = [ctypes.c_int] * 3
+    for fn in (lib.rtmpc_admm_solve_f32, lib.rtmpc_admm_solve_f32_on_path,
+               lib.rtmpc_admm_path, lib.rtmpc_admm_rows_per_group):
+        fn.restype = ctypes.c_int
     return lib
 
 
-def kernel_path(n_cols: int) -> str:
-    """The kernel path that takes composites ``n_cols = n_p + m_p`` wide;
-    raises ``ValueError`` if none does."""
+def kernel_path(n_cols: int, B: Optional[int] = None,
+                n_p: Optional[int] = None) -> str:
+    """The kernel path that takes a launch of ``B`` rows of a QP ``n_cols =
+    n_p + m_p`` wide, as the C dispatch picks it (``admm_path``; with
+    ``B``, ``n_p`` is needed too); without ``B``, the composite path of
+    that width (``"smem"`` up to 192 columns, ``"l2"`` up to 2048).
+    Raises ``ValueError`` above 2048 columns."""
     for path, limit in _PATH_LIMITS:
         if n_cols <= limit:
-            return path
-    raise ValueError(f"admm_solve_cuda: n_p + m_p = {n_cols} exceeds the "
-                     f"kernel's {_PATH_LIMITS[-1][1]} columns")
+            break
+    else:
+        raise ValueError(f"admm_solve_cuda: n_p + m_p = {n_cols} exceeds "
+                         f"the kernel's {_PATH_LIMITS[-1][1]} columns")
+    if B is None:
+        return path
+    if n_p is None or not 0 < n_p < n_cols:
+        raise ValueError(f"kernel_path: a launch's path needs n_p (0 < n_p "
+                         f"< {n_cols}), got {n_p}")
+    if ((B <= FAC_MAX_B or n_cols > FAC_WIDE_COLS)
+            and _fac_fits(n_p, n_cols - n_p)):
+        return "fac"
+    return path
 
 
-def kernel_rows(n_p: int, m_p: int) -> int:
-    """Batch rows that one thread block (path ``"smem"``) or one cluster
-    (path ``"l2"``) of the kernel owns at this shape: the kernel picks it
-    at launch, and a batch that is no multiple of it has a masked tail.
-    Builds the kernel, so it needs the CUDA toolkit."""
+def kernel_rows(n_p: int, m_p: int, B: Optional[int] = None) -> int:
+    """Batch rows that one thread block (path ``"smem"``), one cluster
+    (``"l2"``) or one group of ``"fac"`` (1, 4 or 16, chosen from B) owns
+    for a launch of ``B`` rows at this shape (without ``B``: the composite
+    path of the width): a batch that is no multiple of it has a masked
+    tail.  Builds the kernel, so it needs the CUDA toolkit."""
     kernel_path(n_p + m_p)
-    fn = _library().rtmpc_admm_rows_per_group
-    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 2
-    return int(fn(n_p, m_p))
+    return int(_library().rtmpc_admm_rows_per_group(n_p, m_p, B or 0))
 
 
 def _synthetic_spec(n_p: int, m_p: int, ntheta: int = 4, seed: int = 0,
@@ -202,6 +338,70 @@ def _admm_solve_cuda_plain(spec: ADMMSpec, theta: torch.Tensor,
                         r_prim=r_prim, r_dual=r_dual)
 
 
+def _admm_solve_factored_plain(spec: ADMMSpec, theta: torch.Tensor,
+                               state: Optional[ADMMState] = None,
+                               iters: int = 100) -> ADMMSolution:
+    """The ``"fac"`` path's function in plain PyTorch: ``ops/qp.py:
+    admm_solve``'s fixed-count iteration with ``q Kinv'`` hoisted, ``xt =
+    (sigma x + (rho z - y) As) Kinv' - q Kinv'``, ``zt = xt As'``.  Up to
+    Where the kernel runs one row a group (``_fac_one_row``) the
+    intermediates of a float32 spec are float64 (the state and the operator
+    stay float32), as the kernel computes them there."""
+    theta = theta.to(spec.q0.dtype)
+    if state is None:
+        state = init_admm_state(spec, theta.shape[0])
+    q, l, u = problem_vectors(spec, theta)
+    # intermediates' type; contiguous transposes: a product with a
+    # transposed view rounds differently at different batch sizes on the
+    # CPU, these do not
+    wide = spec.Kinv.dtype == torch.float32 and _fac_one_row(
+        theta.shape[0], spec.Kinv.shape[0], spec.As.shape[0])
+    it = torch.float64 if wide else spec.Kinv.dtype
+    KT = spec.Kinv.T.contiguous().to(it)
+    As, AsT = spec.As.to(it), spec.As.T.contiguous().to(it)
+    rho, rho_inv = spec.rho.to(it), spec.rho_inv.to(it)
+    qk = q.to(it) @ KT
+    alpha, sigma = spec.alpha, spec.sigma.to(it)
+    beta = (1.0 - spec.alpha).to(it)
+    x, y, z = state
+    for _ in range(iters):
+        s = rho * z.to(it) - y.to(it)
+        xt = (sigma * x.to(it) + s @ As) @ KT - qk
+        zt = xt @ AsT
+        x_new = alpha.to(it) * xt + beta * x.to(it)
+        z_mix = alpha.to(it) * zt + beta * z.to(it)
+        z_new = torch.minimum(torch.maximum(z_mix + y.to(it) * rho_inv,
+                                            l.to(it)), u.to(it))
+        y = (y.to(it) + rho * (z_mix - z_new)).to(x.dtype)
+        x, z = x_new.to(y.dtype), z_new.to(y.dtype)
+    x_, y_, z_ = x.to(it), y.to(it), z.to(it)
+    r_prim = (x_ @ AsT - z_).abs().amax(dim=1).to(x.dtype)
+    r_dual = (x_ @ spec.Ps.T.to(it) + q.to(it) + y_ @ As).abs().amax(
+        dim=1).to(x.dtype)
+    return ADMMSolution(z_primal=spec.D * x, state=ADMMState(x, y, z),
+                        r_prim=r_prim, r_dual=r_dual)
+
+
+def _plain_for(path: str):
+    return _admm_solve_factored_plain if path == "fac" else \
+        _admm_solve_cuda_plain
+
+
+def _spec_path(spec: ADMMSpec, B: int) -> str:
+    n_p, m_p = spec.Kinv.shape[0], spec.As.shape[0]
+    return kernel_path(n_p + m_p, B, n_p)
+
+
+def _admm_solve_plain(spec: ADMMSpec, theta: torch.Tensor,
+                      state: Optional[ADMMState] = None,
+                      iters: int = 100) -> ADMMSolution:
+    """The plain version of the path the card takes for this launch (what
+    ``admm_solve_cuda`` runs on CPU tensors, and what the kernel is held
+    to on the card)."""
+    return _plain_for(_spec_path(spec, theta.shape[0]))(spec, theta, state,
+                                                        iters)
+
+
 def _check(name, t, shape, device):
     if t.device != device or t.dtype != torch.float32:
         raise ValueError(f"admm_solve_cuda: {name} must be float32 on "
@@ -219,10 +419,25 @@ def admm_solve_cuda(spec: ADMMSpec, theta: torch.Tensor,
     """One fixed-count ADMM phase for a batch: ``theta`` ``(B, ntheta)``,
     state leaves ``(B, n_p)`` / ``(B, m_p)``, residuals ``(B,)``.
 
-    CPU tensors run the plain PyTorch version.  CUDA tensors (float32,
-    contiguous) launch the kernel or raise; there is no fallback."""
+    CPU tensors run the plain PyTorch version of the path the card would
+    take.  CUDA tensors (float32, contiguous) launch the kernel on the path
+    of the dispatch or raise; there is no fallback."""
     if theta.device.type == "cpu":
-        return _admm_solve_cuda_plain(spec, theta, state, iters)
+        return _admm_solve_plain(spec, theta, state, iters)
+    return _launch(spec, theta, state, iters, None)
+
+
+def _admm_solve_cuda_on_path(spec: ADMMSpec, theta: torch.Tensor,
+                             state: Optional[ADMMState], iters: int,
+                             path: str) -> ADMMSolution:
+    """``admm_solve_cuda`` on a path the caller names, for timing one path
+    against another at the same shape (a composite path only at the
+    widths the dispatch gives it, ``"fac"`` only where its operator fits);
+    CUDA tensors only.  Not on the main path."""
+    return _launch(spec, theta, state, iters, path)
+
+
+def _launch(spec, theta, state, iters, path):
     if theta.device.type != "cuda":
         raise ValueError(f"admm_solve_cuda: unsupported device {theta.device}")
     dev = theta.device
@@ -231,7 +446,8 @@ def admm_solve_cuda(spec: ADMMSpec, theta: torch.Tensor,
     if theta.dim() != 2:
         raise ValueError("admm_solve_cuda: theta must be (B, ntheta)")
     B, nt = theta.shape
-    path = kernel_path(nm)
+    dispatched = _spec_path(spec, B)
+    path = path or dispatched
     if iters < 0:
         raise ValueError("admm_solve_cuda: iters must be >= 0")
     if state is None:
@@ -240,7 +456,7 @@ def admm_solve_cuda(spec: ADMMSpec, theta: torch.Tensor,
               "As": (m_p, n_p), "Ps": (n_p, n_p), "Mq": (n_p, nt),
               "Ml": (m_p, nt), "Mu": (m_p, nt), "q0": (n_p,), "l0": (m_p,),
               "u0": (m_p,), "rho": (m_p,), "rho_inv": (m_p,), "alpha": (),
-              "D": (n_p,)}
+              "D": (n_p,), "Kinv": (n_p, n_p), "sigma": ()}
     for f, shape in shapes.items():
         _check(f"spec.{f}", getattr(spec, f), shape, dev)
     _check("theta", theta, (B, nt), dev)
@@ -261,11 +477,16 @@ def admm_solve_cuda(spec: ADMMSpec, theta: torch.Tensor,
             spec.As, spec.Ps, spec.Mq, spec.Ml, spec.Mu, spec.q0, spec.l0,
             spec.u0, spec.rho, spec.rho_inv, spec.alpha,
             x_o, y_o, z_o, rp, rd)]
-        rc = lib.rtmpc_admm_solve_f32(
-            *ptrs, B, n_p, m_p, nt, iters, dev.index or 0, stream)
+        args = (*ptrs, B, n_p, m_p, nt, iters, spec.Kinv.data_ptr(),
+                spec.sigma.data_ptr())
+        if path == dispatched:
+            rc = lib.rtmpc_admm_solve_f32(*args, dev.index or 0, stream)
+        else:
+            rc = lib.rtmpc_admm_solve_f32_on_path(
+                *args, _PATH_CODES[path], dev.index or 0, stream)
         if rc != 0:
             raise RuntimeError(f"admm_solve_cuda: kernel launch failed with "
-                               f"CUDA error {rc}")
+                               f"CUDA error {rc} (path {path})")
         admm_solve_cuda.launches += 1
         admm_solve_cuda.launches_by_path[path] += 1
     return ADMMSolution(z_primal=x_o * spec.D, state=ADMMState(x_o, y_o, z_o),
@@ -273,4 +494,4 @@ def admm_solve_cuda(spec: ADMMSpec, theta: torch.Tensor,
 
 
 admm_solve_cuda.launches = 0
-admm_solve_cuda.launches_by_path = {path: 0 for path, _ in _PATH_LIMITS}
+admm_solve_cuda.launches_by_path = {path: 0 for path in _PATH_CODES}

@@ -23,8 +23,9 @@ device time and the host time of one call of the plant alone.  Prints one
 JSON object and, with ``--out``, also writes it and the kernel table there.
 
 Every time comes from this run.  ``k1_tflops_derived`` is the analytic
-FLOP count of the kernel's matrix products (2 (n_p+m_p)^2 a row and an
-iteration) over its measured time, not a counter reading.
+FLOP count of the kernel's matrix products over its measured time, not a
+counter reading: 2 (n_p+m_p)^2 a row and an iteration on the composite
+paths, 2 (n_p^2 + 2 n_p m_p) on "fac" (``k1_path``).
 """
 
 from __future__ import annotations
@@ -155,14 +156,21 @@ def profile_steps(batch: int, steps: int, controller: str = "flagship",
         a_step = 4 if cfg.extended else 2   # 2 phases a QP
         if k1_count != a_step * steps:
             raise RuntimeError(f"{k1_count} ADMM launches for {steps} steps")
-        nm = arrays.admm.Kinv.shape[0] + arrays.admm.As.shape[0]
+        from ..ops.qp_cuda import kernel_path
+        n_p, m_p = arrays.admm.Kinv.shape[0], arrays.admm.As.shape[0]
+        path = kernel_path(n_p + m_p, batch, n_p)
+        # the products the path runs a row an iteration: the composite
+        # form's (n + m)^2, or the factored form's n^2 + 2 n m
+        per_row = ((n_p + m_p) ** 2 if path != "fac"
+                   else n_p * n_p + 2 * n_p * m_p)
         k1_ms = k1_us / 1e3 / k1_count
         res.update({
+            "k1_path": path,
             "k1_ms_per_launch": k1_ms,
             "k1_launches_per_step": k1_count / steps,
             "k1_share_of_device_time": k1_us / dev_us,
             "k1_tflops_derived":
-                2 * nm * nm * batch * cfg.iters / (k1_ms * 1e9)})
+                2 * per_row * batch * cfg.iters / (k1_ms * 1e9)})
     else:
         res["ip_iterations_per_step"] = ip_iterations / steps
     other = sorted(((us, c, n) for n, (c, us) in by_name.items()

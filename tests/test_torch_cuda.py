@@ -8,6 +8,10 @@ a machine without it:
 """
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -73,10 +77,11 @@ def test_kernel_matches_plain_version(flagship_cuda, shape, B):
     if isinstance(B, str):
         B = kernel_rows(n_p, m_p) + int(B[4:])
         y_atol = Y_ATOL_SMALL_B
+    path = kernel_path(n_p + m_p, B, n_p)   # "fac" up to FAC_MAX_B rows
     before = dict(admm_solve_cuda.launches_by_path)
     errs = compare_with_plain(spec1, spec2, _theta(B, 0), _theta(B, 1),
                               (60, 60), (Z_ATOL, y_atol))
-    assert admm_solve_cuda.launches_by_path["smem"] == before["smem"] + 2
+    assert admm_solve_cuda.launches_by_path[path] == before[path] + 2
     assert max(errs["cold_x"], errs["warm_x"]) <= Z_ATOL
 
 
@@ -156,11 +161,25 @@ def test_closed_loop_polish_cuda_matches_admm():
     assert torch.equal(ck.feasible, ca.feasible)
 
 
+def _step_profile(*args):
+    """``python -m rtmpc_tpu_torch.parallel.step_profile`` in a process of
+    its own (a ``torch.profiler`` window opened in a process that captured
+    CUDA graphs before has missed a K1 event of the extended step; the
+    profiler runs in a fresh process, as the module's users run it);
+    returns its JSON report."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "rtmpc_tpu_torch.parallel.step_profile",
+         *map(str, args)], cwd=root, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def test_step_profile_reads_the_kernel(flagship_cuda):
     """The step profiler finds both ADMM launches of every step in the
     profiler's device events."""
-    from rtmpc_tpu_torch.parallel.step_profile import profile_steps
-    res = profile_steps(batch=64, steps=2)
+    res = _step_profile("--batch", 64, "--steps", 2)
     assert res["k1_launches_per_step"] == 2
     assert 0 < res["k1_share_of_device_time"] <= 1
     assert 0 < res["busy_share_profiled"] <= 1.05
@@ -222,9 +241,101 @@ def test_l2_path_matches_plain_version(cartpole, arm, B):
     if isinstance(B, str):
         B = kernel_rows(n_p, m_p) + int(B[4:])
     th = _cartpole_theta(B, 0)
+    path = kernel_path(n_p + m_p, B, n_p)   # "fac" up to FAC_MAX_B rows
     before = dict(admm_solve_cuda.launches_by_path)
     compare_with_plain(spec1, spec2, th, th, (iters, iters), bars)
-    assert admm_solve_cuda.launches_by_path["l2"] == before["l2"] + 2
+    assert admm_solve_cuda.launches_by_path[path] == before[path] + 2
+
+
+# ---------------------------------------------------------------------------
+# The "fac" path (admm_kernel_factored): small batches at every width, and
+# every batch above 1024 columns
+# ---------------------------------------------------------------------------
+
+FAC_BATCHES = (1, 15, 16, 17, 37, 61)
+
+
+def _fac_specs(name, flagship_cuda, cartpole, extended):
+    """(phase-1 spec, phase-2 spec, (z bar, y bar)) of a controller's QP."""
+    from rtmpc_tpu_torch.apps.common import ADMM_SCHEDULE
+    if name == "flagship":
+        a = flagship_cuda[0]
+        return a.admm, a.admm2, (Z_ATOL, Y_ATOL_SMALL_B)
+    if name in ("tube", "track"):
+        a, _ = cartpole[1][name].to_device(torch.float32, "cuda",
+                                           solver="cuda", **ADMM_SCHEDULE)
+        return a.admm, a.admm2, (CP_Z_ATOL, CP_Y_ATOL)
+    a = extended[1][0]
+    return ((a.admm, a.admm2) if name == "extended" else
+            (a.admm_pr, a.admm2_pr)) + ((EXT_Z_ATOL, EXT_Y_ATOL),)
+
+
+@pytest.mark.parametrize("B", FAC_BATCHES + (64, 200))
+@pytest.mark.parametrize("name", ["flagship", "tube", "track", "extended",
+                                  "extended packet-received"])
+def test_fac_path_matches_plain_version(flagship_cuda, cartpole, extended,
+                                        name, B):
+    """The "fac" path against its plain version (``_admm_solve_factored_
+    plain``), cold at phase 1 then warm at phase 2, on the controllers'
+    QPs at batches around its groups' rows (1, 4 or 16, from the batch:
+    the ragged tails are masked) and, above 1024 columns, at B=200; the
+    bars of ``kernel_bench.py`` for each QP."""
+    spec1, spec2, bars = _fac_specs(name, flagship_cuda, cartpole, extended)
+    n_p, m_p = spec1.Kinv.shape[0], spec1.As.shape[0]
+    if kernel_path(n_p + m_p, B, n_p) != "fac":
+        assert B > 64 and n_p + m_p <= 1024
+        return
+    rows = kernel_rows(n_p, m_p, B)
+    assert rows in (1, 4, 16)
+    th = (_theta(B, 9) if name == "flagship" else _cartpole_theta(B, 9))
+    before = dict(admm_solve_cuda.launches_by_path)
+    iters = (60, 60) if name == "flagship" else (200, 200)
+    compare_with_plain(spec1, spec2, th, th, iters, bars,
+                       warm_from_kernel=True)
+    assert admm_solve_cuda.launches_by_path["fac"] == before["fac"] + 2
+
+
+@pytest.mark.parametrize("B", [1, 17])
+@pytest.mark.parametrize("m_p", [49, 20, 41])
+def test_fac_path_on_clusters_whose_last_block_owns_no_rows(flagship_cuda,
+                                                            m_p, B):
+    """A cluster's block slices of As are ceil(m / 8) rows, and the kernel
+    does not clamp them: 100 + 49 (7 rows to blocks 0-6, none to block 7)
+    takes "fac" and matches its plain version, cold then warm, at one row
+    a group and at 4; 100 + 20 and 100 + 41 (the last block would own -1
+    rows) are refused by "fac" and take the composite path, which matches
+    its plain version."""
+    from rtmpc_tpu_torch.ops.qp_cuda import _admm_solve_cuda_on_path
+    spec = _synthetic_spec(100, m_p, 4, seed=m_p, device="cuda")
+    path = kernel_path(100 + m_p, B, 100)
+    assert path == ("fac" if m_p == 49 else "smem")
+    if path != "fac":
+        with pytest.raises(RuntimeError, match="path fac"):
+            _admm_solve_cuda_on_path(spec, _theta(B, m_p), None, 10, "fac")
+    before = admm_solve_cuda.launches_by_path[path]
+    compare_with_plain(spec, spec, _theta(B, m_p), _theta(B, m_p + 1),
+                       (50, 50), warm_from_kernel=True)
+    assert admm_solve_cuda.launches_by_path[path] == before + 2
+
+
+def test_kernel_path_mirrors_the_c_dispatch(flagship_cuda):
+    """``kernel_path(n_cols, B, n_p)`` (Python) and ``admm_path`` (C) name
+    the same path over widths and batches around every edge, and over a
+    grid of shapes at B=1 ("fac" wherever its operator fits)."""
+    from rtmpc_tpu_torch.ops.qp_cuda import _library
+    code = {1: "smem", 2: "l2", 3: "fac"}
+    lib = _library()
+    for n_p, m_p in ((40, 112), (48, 144), (41, 152), (112, 792), (100, 924),
+                     (100, 925), (112, 1648), (256, 1792), (257, 1700),
+                     (300, 600), (100, 20), (100, 41), (100, 49), (64, 256),
+                     (65, 256), (128, 1920), (240, 20)):
+        for B in (1, 2, 15, 16, 17, 63, 64, 65, 200, 16384):
+            assert code[lib.rtmpc_admm_path(B, n_p, m_p)] == kernel_path(
+                n_p + m_p, B, n_p), (n_p, m_p, B)
+    for n_p in range(1, 260, 7):
+        for m_p in range(1, 2049 - n_p, 53):
+            assert code[lib.rtmpc_admm_path(1, n_p, m_p)] == kernel_path(
+                n_p + m_p, 1, n_p), (n_p, m_p)
 
 
 def test_kernel_refuses_too_wide_qps(flagship_cuda):
@@ -297,7 +408,9 @@ def test_extended_qps_match_plain_version(extended, qp, B):
     before = dict(admm_solve_cuda.launches_by_path)
     compare_with_plain(spec1, spec2, th, th, (200, 200),
                        (EXT_Z_ATOL, EXT_Y_ATOL))
-    assert admm_solve_cuda.launches_by_path["l2"] == before["l2"] + 2
+    # above 1024 columns every batch takes "fac"
+    assert kernel_path(n_p + m_p, B, n_p) == "fac"
+    assert admm_solve_cuda.launches_by_path["fac"] == before["fac"] + 2
 
 
 @pytest.mark.parametrize("plant", ["linear", "nonlinear"])
@@ -333,11 +446,14 @@ def test_extended_closed_loop_launches_both_qps(extended, plant):
 
 
 def test_step_profile_reads_the_extended_step(extended):
-    from rtmpc_tpu_torch.parallel.step_profile import profile_steps
-    res = profile_steps(16, 2, "extended", "cuda", "nonlinear")
+    res = _step_profile("--batch", 16, "--steps", 2, "--controller",
+                        "extended", "--solver", "cuda", "--plant",
+                        "nonlinear")
     assert res["k1_launches_per_step"] == 4
     assert res["plant_device_ops_per_call"] > 10
-    res = profile_steps(8, 1, "extended", "ip_riccati", "linear")
+    res = _step_profile("--batch", 8, "--steps", 1, "--controller",
+                        "extended", "--solver", "ip_riccati", "--plant",
+                        "linear")
     assert res["ip_iterations_per_step"] > 3
     assert "k1_ms_per_launch" not in res
 
@@ -645,3 +761,81 @@ def test_two_rank_nccl_sweep_across_cards_equals_one_process(tmp_path):
     res = r0["result"]
     np.testing.assert_array_equal(res.feasible, one.feasible)
     assert np.abs(res.traj - one.traj).max() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The "fac" path inside CUDA graphs
+# ---------------------------------------------------------------------------
+
+def test_fac_one_tick_graph_equals_eager(cartpole):
+    """A one-tick session (one CUDA graph replay a tick, as Fig. 3d runs)
+    of the cartpole tube controller under solver "cuda": K1 at B=1 on the
+    "fac" path (a cluster of 8 blocks) inside the graph; 6 ticks replayed
+    equal the same ticks run eagerly (1e-6; the same kernels on the same
+    inputs)."""
+    from rtmpc_tpu_torch.apps.common import ADMM_SCHEDULE
+    from rtmpc_tpu_torch.parallel.session import Session
+    sc, setups = cartpole
+    arrays, cfg = setups["tube"].to_device(torch.float32, "cuda",
+                                           solver="cuda", **ADMM_SCHEDULE)
+    K = 6
+    rng = np.random.default_rng(6)
+    refs = torch.zeros(K, 4)
+    refs[:, 0] = sc.ref_value
+    w = torch.tensor(rng.uniform(sc.w_lo, sc.w_hi, (K, 4)),
+                     dtype=torch.float32)
+    theta = torch.tensor(rng.integers(0, 2, K), dtype=torch.int32)
+    gamma = torch.tensor(rng.integers(0, 2, K), dtype=torch.int32)
+    before = admm_solve_cuda.launches_by_path["fac"]
+    session = Session(arrays, cfg, 1, sc.x0)
+    assert session.graph is not None
+    assert admm_solve_cuda.launches_by_path["fac"] == before + 4
+    ticks = []
+    for t in range(K):
+        o = session.advance(*(a[t:t + 1].cuda() for a in (refs, w, theta,
+                                                           gamma)))
+        ticks.append(tuple(a.clone() for a in o))
+    got = [torch.cat(f, dim=1) for f in zip(*ticks)]
+    _, want = make_batched_rollout(arrays, cfg, K)(
+        torch.tensor(sc.x0, dtype=torch.float32, device="cuda")[None],
+        *(a[None].cuda() for a in (refs, w, theta, gamma)))
+    torch.cuda.synchronize()
+    for name, a, b in zip(want._fields, got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6, msg=name)
+
+
+def test_fac_launches_are_counted_by_path(flagship_cuda, extended):
+    """``launches_by_path["fac"]`` counts the served session's launches (a
+    window's capture and its warm-up, K1 at B=1) and the extended arm's
+    (1760 columns, B=16), and the flagship loop at B=16384 launches none
+    of them (the smem path)."""
+    from rtmpc_tpu_torch.parallel.session import Session
+    arrays, cfg = flagship_cuda
+    before = dict(admm_solve_cuda.launches_by_path)
+    Session(arrays, cfg, 5, [0.0, 0.0])
+    after = dict(admm_solve_cuda.launches_by_path)
+    assert after["fac"] - before["fac"] == 4 * 5
+    assert after["smem"] == before["smem"] and after["l2"] == before["l2"]
+    B, T = 16384, 2
+    g = torch.Generator(device="cuda").manual_seed(1)
+    theta, gamma = draw_loss_masks(g, T, 0.7, 0.7, (B,))
+    w = draw_disturbances(g, T, [-0.1, -0.1], [0.1, 0.1], (B,))
+    refs = torch.zeros(B, T, 2, device="cuda")
+    make_batched_rollout(arrays, cfg, T)(
+        torch.zeros(B, 2, device="cuda"), refs, w, theta, gamma)
+    torch.cuda.synchronize()
+    later = dict(admm_solve_cuda.launches_by_path)
+    assert later["smem"] - after["smem"] == 2 * T
+    assert later["fac"] == after["fac"]
+    sc, (ext_arrays, ext_cfg) = extended
+    B = 16
+    theta, gamma = draw_loss_masks(g, T, 0.5, 0.5, (B,))
+    w = draw_disturbances(g, T, -sc.w_hi, sc.w_hi, (B,))
+    refs = torch.zeros(B, T, 4, device="cuda")
+    refs[:, :, 0] = sc.ref_value
+    make_batched_rollout(ext_arrays, ext_cfg, T)(
+        torch.zeros(B, 4, device="cuda"), refs, w, theta, gamma)
+    torch.cuda.synchronize()
+    last = dict(admm_solve_cuda.launches_by_path)
+    assert last["fac"] - later["fac"] == 4 * T
+    assert last["l2"] == later["l2"] and last["smem"] == later["smem"]

@@ -3,10 +3,13 @@
 * ``ops/qp.py:admm_solve`` (three-matmul form) against
   ``jax.vmap(rtmpc_tpu.ops.qp.admm_solve)`` in float64, cold and warm,
   both schedule phases: <= 1e-10.
-* The plain PyTorch version of the CUDA kernel (composite form, the CPU
-  branch of ``admm_solve_cuda``) against the same in float64 (<= 1e-10),
-  and in float32 against the Pallas kernel run in interpret mode at the
-  bars of ``tests/test_qp_pallas.py`` (z 1e-5, y 2e-3).
+* The plain PyTorch versions of the CUDA kernel's paths (the composite
+  form of ``"smem"`` and ``"l2"``, the factored form of ``"fac"``; the
+  CPU branch of ``admm_solve_cuda`` runs the one of the path the card would
+  take) against the same in float64 (<= 1e-10), and in float32 against the
+  Pallas kernel run in interpret mode at the bars of
+  ``tests/test_qp_pallas.py`` (z 1e-5, y 2e-3), at B=1 too.
+* ``kernel_path`` against the dispatch's rule at its edges.
 
 Both packages get the same problem data: the port's spec is bridged from
 the JAX package's with ``arrays_from_numpy`` (bit-equality of the port's
@@ -27,7 +30,9 @@ from rtmpc_tpu.ops.qp_pallas import admm_solve_pallas
 
 from rtmpc_tpu_torch.models import arrays_from_numpy
 from rtmpc_tpu_torch.ops.qp import ADMMState, admm_solve
-from rtmpc_tpu_torch.ops.qp_cuda import _admm_solve_cuda_plain, admm_solve_cuda
+from rtmpc_tpu_torch.ops.qp_cuda import (FAC_MAX_B, _admm_solve_cuda_plain,
+                                         _admm_solve_factored_plain,
+                                         admm_solve_cuda)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -173,17 +178,24 @@ def test_kernel_plain_version_matches_pallas_warm(specs32):
 
 
 def test_wrapper_runs_plain_version_on_cpu(specs64):
-    """On CPU tensors the wrapper is the plain version, bit for bit, and
-    counts no kernel launch."""
+    """On CPU tensors the wrapper is the plain version of the path the card
+    would take, bit for bit, and counts no kernel launch: the factored
+    form up to ``FAC_MAX_B`` rows of the flagship's 152 columns, the
+    composite form one row above."""
     pa = specs64[1]
-    theta = torch.tensor(np.random.default_rng(3).uniform(-2, 2, (5, 4)))
-    before = admm_solve_cuda.launches
-    got = admm_solve_cuda(pa.admm, theta, None, 30)
-    want = _admm_solve_cuda_plain(pa.admm, theta, None, 30)
-    assert admm_solve_cuda.launches == before
-    for a, b in zip((got.z_primal, *got.state, got.r_prim, got.r_dual),
-                    (want.z_primal, *want.state, want.r_prim, want.r_dual)):
-        assert torch.equal(a, b)
+    rng = np.random.default_rng(3)
+    before = dict(admm_solve_cuda.launches_by_path)
+    for B, plain in ((5, _admm_solve_factored_plain),
+                     (FAC_MAX_B, _admm_solve_factored_plain),
+                     (FAC_MAX_B + 1, _admm_solve_cuda_plain)):
+        theta = torch.tensor(rng.uniform(-2, 2, (B, 4)))
+        got = admm_solve_cuda(pa.admm, theta, None, 30)
+        want = plain(pa.admm, theta, None, 30)
+        for a, b in zip((got.z_primal, *got.state, got.r_prim, got.r_dual),
+                        (want.z_primal, *want.state, want.r_prim,
+                         want.r_dual)):
+            assert torch.equal(a, b)
+    assert admm_solve_cuda.launches_by_path == before
 
 
 def test_wrapper_rejects_other_devices(specs64):
@@ -227,34 +239,147 @@ def test_unported_options_raise(specs64, option):
                                    atol=TOL64)
 
 
-def test_kernel_plain_version_matches_pallas_cartpole_shape():
-    """The large-composite regime: the cartpole tube QP (n_p + m_p = 112 +
-    792, the kernel's L2 path), float32, 20 iterations, B=9, against the
-    Pallas kernel in interpret mode: z 1e-4 (measured 2.4e-5: float32 sums
-    of 904 terms in two orders), y 2e-3."""
+@pytest.fixture(scope="module")
+def cartpole_specs32():
+    """The cartpole tube QP (n_p + m_p = 112 + 792) in float32: the JAX
+    package's spec and the port's copy of it."""
     from rtmpc_tpu.apps.scenarios import cartpole_scenario
     from rtmpc_tpu.ops.qp import prepare_admm as jax_prepare_admm
     from rtmpc_tpu_torch.models import spec_from_numpy
-    from rtmpc_tpu_torch.ops.qp_cuda import kernel_path
     sc = cartpole_scenario()
     st = setup_tube_tracking(sc.A, sc.B, sc.Q, sc.R, sc.N, sc.X, sc.U, sc.W,
                              fixed_initial_state=True, rpi_method=1)
     jspec = jax_prepare_admm(st.template, dtype=jnp.float32, alpha=1.8)
-    pspec = spec_from_numpy(jax.tree_util.tree_map(np.asarray, jspec),
-                            torch.float32)
+    return jspec, spec_from_numpy(jax.tree_util.tree_map(np.asarray, jspec),
+                                  torch.float32)
+
+
+def _both_plains_match_pallas(jspec, pspec, theta, iters, z_atol, y_atol):
+    want = admm_solve_pallas(jspec, jnp.asarray(theta), iters=iters,
+                             block_b=8, interpret=True)
+    for plain in (_admm_solve_cuda_plain, _admm_solve_factored_plain):
+        got = plain(pspec, torch.tensor(theta), None, iters)
+        np.testing.assert_allclose(got.z_primal.numpy(),
+                                   np.asarray(want.z_primal), rtol=0,
+                                   atol=z_atol, err_msg=plain.__name__)
+        np.testing.assert_allclose(got.state.y.numpy(),
+                                   np.asarray(want.state.y), rtol=0,
+                                   atol=y_atol, err_msg=plain.__name__)
+
+
+@pytest.mark.parametrize("B", [9, 1])
+def test_kernel_plain_version_matches_pallas_cartpole_shape(cartpole_specs32,
+                                                            B):
+    """The large-composite regime: the cartpole tube QP (n_p + m_p = 112 +
+    792: the kernel's L2 path by width, its "fac" path up to FAC_MAX_B
+    rows), float32, 20 iterations, B=9 and B=1, against the Pallas kernel
+    in interpret mode: both plain versions (the composite form and the
+    factored form) at z 1e-4 (measured 2.4e-5: float32 sums of 904 terms
+    in two orders), y 2e-3."""
+    from rtmpc_tpu_torch.ops.qp_cuda import kernel_path
+    jspec, pspec = cartpole_specs32
     n_cols = pspec.Kinv.shape[0] + pspec.As.shape[0]
     assert n_cols == 904 and kernel_path(n_cols) == "l2"
+    assert kernel_path(n_cols, B, pspec.Kinv.shape[0]) == "fac"
     rng = np.random.default_rng(4)
-    theta = np.zeros((9, 8), np.float32)
-    theta[:, :4] = rng.uniform(-0.2, 0.2, (9, 4))
-    theta[:, 4] = rng.uniform(-1.0, 6.0, 9)
-    want = admm_solve_pallas(jspec, jnp.asarray(theta), iters=20, block_b=8,
-                             interpret=True)
-    got = _admm_solve_cuda_plain(pspec, torch.tensor(theta), None, 20)
-    np.testing.assert_allclose(got.z_primal.numpy(),
-                               np.asarray(want.z_primal), rtol=0, atol=1e-4)
-    np.testing.assert_allclose(got.state.y.numpy(), np.asarray(want.state.y),
-                               rtol=0, atol=2e-3)
+    theta = np.zeros((B, 8), np.float32)
+    theta[:, :4] = rng.uniform(-0.2, 0.2, (B, 4))
+    theta[:, 4] = rng.uniform(-1.0, 6.0, B)
+    _both_plains_match_pallas(jspec, pspec, theta, 20, 1e-4, 2e-3)
+
+
+@pytest.mark.parametrize("B", [9, 1])
+def test_kernel_plain_versions_match_pallas_flagship(specs32, B):
+    """The same on the flagship's QP (40 + 112 columns, the "fac" path up to
+    FAC_MAX_B rows and the smem path above): both plain versions against
+    the Pallas kernel in interpret mode, cold, 40 iterations, float32, z
+    1e-4, y 2e-3."""
+    jspec, pspec = specs32
+    theta = np.random.default_rng(7).uniform(-2, 2, (B, 4)).astype(np.float32)
+    _both_plains_match_pallas(jspec, pspec, theta, 40, 1e-4, 2e-3)
+
+
+@pytest.mark.parametrize("n_p,m_p", [(112, 1648), (41, 152)])
+def test_factored_and_composite_plain_versions_agree(n_p, m_p):
+    """The "fac" path's plain version (factored form, ``q Kinv'`` hoisted)
+    and the composite paths' are the same function: on a random QP at the
+    extended controller's 112 + 1648 columns and at 41 + 152, float64,
+    B=3, cold then warm, they agree to float64 rounding."""
+    from rtmpc_tpu_torch.ops.qp_cuda import _synthetic_spec
+    spec = _synthetic_spec(n_p, m_p, 4, seed=11, dtype=torch.float64)
+    rng = np.random.default_rng(12)
+    state = None
+    for phase in range(2):
+        theta = torch.tensor(rng.uniform(-2, 2, (3, 4)))
+        a = _admm_solve_factored_plain(spec, theta, state, 60)
+        b = _admm_solve_cuda_plain(spec, theta, state, 60)
+        assert (a.z_primal - b.z_primal).abs().max().item() < 1e-11
+        assert (a.state.x - b.state.x).abs().max().item() < 1e-11
+        assert (a.state.z - b.state.z).abs().max().item() < 1e-11
+        assert (a.state.y - b.state.y).abs().max().item() < 1e-9
+        assert (a.r_prim - b.r_prim).abs().max().item() < 1e-11
+        assert (a.r_dual - b.r_dual).abs().max().item() < 1e-9
+        state = a.state
+
+
+def test_kernel_path_mirrors_the_dispatch_at_its_edges():
+    """``kernel_path(n_cols, B, n_p)`` follows the C dispatch
+    (``admm_kernel.cu:admm_path``): "fac" up to ``FAC_MAX_B`` rows at any
+    width and above 1024 columns at any batch, where its operator fits
+    shared memory, the composite path of the width elsewhere; without B,
+    the composite path of the width; above 2048 columns, refused."""
+    from rtmpc_tpu_torch.ops.qp_cuda import FAC_WIDE_COLS, kernel_path
+    assert FAC_WIDE_COLS == 1024
+    for n_p, n_cols, composite in ((40, 152, "smem"), (48, 192, "smem"),
+                                   (112, 904, "l2"), (100, 1024, "l2")):
+        assert kernel_path(n_cols) == composite
+        assert kernel_path(n_cols, 1, n_p) == "fac"
+        assert kernel_path(n_cols, FAC_MAX_B, n_p) == "fac"
+        assert kernel_path(n_cols, FAC_MAX_B + 1, n_p) == composite
+        assert kernel_path(n_cols, 16384, n_p) == composite
+    for n_p, n_cols in ((100, 1025), (112, 1760), (100, 2048)):
+        assert kernel_path(n_cols) == "l2"
+        for B in (1, FAC_MAX_B, FAC_MAX_B + 1, 200, 16384):
+            assert kernel_path(n_cols, B, n_p) == "fac"
+    # operators that do not fit stay on the composite paths at any batch:
+    # the widest random QP, Kinv alone above about 238 variables, and a
+    # cluster whose last block would own fewer than no rows of As
+    for n_p, n_cols, composite in ((256, 2048, "l2"), (240, 260, "l2"),
+                                   (128, 2048, "l2"), (100, 120, "smem")):
+        for B in (1, FAC_MAX_B, 200):
+            assert kernel_path(n_cols, B, n_p) == composite
+    with pytest.raises(ValueError, match="n_p"):
+        kernel_path(152, 1)
+    for B in (None, 1, 200):
+        with pytest.raises(ValueError, match="2048"):
+            kernel_path(2049, B, 100)
+
+
+@pytest.mark.parametrize("n_p,m_p,fits", [
+    (40, 112, True), (16, 96, True), (112, 792, True), (32, 760, True),
+    (112, 1648, True), (100, 49, True), (100, 20, False), (100, 41, False),
+    (256, 1792, False), (128, 1920, False), (230, 100, False)])
+def test_fac_layout_fits_the_controllers_qps(n_p, m_p, fits):
+    """``_fac_fits`` (the mirror of ``admm_factored.cu:factored_fits``):
+    every controller's QP fits a block's shared memory at each rows a
+    group "fac" may run (1 on one block; 1, 4 and 16 on a cluster), the
+    widest random QPs do not, and a cluster whose last block would own
+    fewer than no rows of As (100 + 20: 8 blocks of ceil(20 / 8) = 3 rows
+    need 21) is refused; one that owns none (100 + 49) is not.  The bytes
+    are those ``fac_layout`` computes (the extended QP's 112 + 1648 at 16
+    rows 3 KB under the limit)."""
+    from rtmpc_tpu_torch.ops.qp_cuda import (_FAC_SMEM_LIMIT, _fac_blocks,
+                                             _fac_fits, _fac_smem_bytes)
+    assert _fac_fits(n_p, m_p) == fits
+    cl = _fac_blocks(n_p, m_p)
+    slices = m_p >= (cl - 1) * -(-m_p // cl)
+    assert slices == ((n_p, m_p) not in ((100, 20), (100, 41)))
+    if slices:
+        rcs = (1,) if cl == 1 else (1, 4, 16)
+        sizes = [_fac_smem_bytes(n_p, m_p, rc) for rc in rcs]
+        assert (max(sizes) <= _FAC_SMEM_LIMIT) == fits
+        want = {(40, 112): [30080], (112, 1648): [159952, 168096, 228160]}
+        assert sizes == want.get((n_p, m_p), sizes)
 
 
 def test_kernel_path_limits():
@@ -291,24 +416,34 @@ def test_compare_with_plain_holds_its_bars():
     card (``kernel_bench.compare_with_plain``), run where the wrapper takes
     the plain version: float32 against itself is exact, against float64 it
     is within ``F64_RATIO`` of itself, and an absolute float64 bar that the
-    float32 rounding exceeds raises."""
+    float32 rounding exceeds raises on a composite path (B above
+    ``FAC_MAX_B``); on the "fac" path (B=9) a launch passes within either
+    the absolute bar or ``F64_RATIO`` times plain float32's own error."""
     from rtmpc_tpu_torch.ops.kernel_bench import compare_with_plain
-    from rtmpc_tpu_torch.ops.qp_cuda import _synthetic_spec
+    from rtmpc_tpu_torch.ops.qp_cuda import _synthetic_spec, kernel_path
     spec = _synthetic_spec(12, 40, 4, seed=5)
     spec64 = _synthetic_spec(12, 40, 4, seed=5, dtype=torch.float64)
-    th = torch.tensor(np.random.default_rng(6).uniform(-2, 2, (9, 4)),
-                      dtype=torch.float32)
-    for warm_from_kernel in (False, True):
-        errs = compare_with_plain(spec, spec, th, th, (30, 20), (0.0, 0.0),
-                                  warm_from_kernel=warm_from_kernel,
-                                  specs64=(spec64, spec64))
-        assert errs["cold_z"] == errs["warm_y"] == errs["warm_rdual"] == 0.0
-        assert 0.0 < errs["f64_cold_y"] == errs["plain_f64_cold_y"] < 1e-2
-    compare_with_plain(spec, spec, th, th, (30, 20), specs64=(spec64, spec64),
-                       f64_bars=(1e-3, 1e-2))
-    with pytest.raises(RuntimeError, match="f64_cold_z"):
+    rng = np.random.default_rng(6)
+    for B in (9, FAC_MAX_B + 1):
+        th = torch.tensor(rng.uniform(-2, 2, (B, 4)), dtype=torch.float32)
+        for warm_from_kernel in (False, True):
+            errs = compare_with_plain(spec, spec, th, th, (30, 20),
+                                      (0.0, 0.0),
+                                      warm_from_kernel=warm_from_kernel,
+                                      specs64=(spec64, spec64))
+            assert (errs["cold_z"] == errs["warm_y"] == errs["warm_rdual"]
+                    == 0.0)
+            assert 0.0 < errs["f64_cold_y"] == errs["plain_f64_cold_y"] < 1e-2
         compare_with_plain(spec, spec, th, th, (30, 20),
-                           specs64=(spec64, spec64), f64_bars=(0.0, 1e-2))
+                           specs64=(spec64, spec64), f64_bars=(1e-3, 1e-2))
+        if kernel_path(52, B, 12) == "fac":
+            compare_with_plain(spec, spec, th, th, (30, 20),
+                               specs64=(spec64, spec64), f64_bars=(0.0, 0.0))
+        else:
+            with pytest.raises(RuntimeError, match="f64_cold_z"):
+                compare_with_plain(spec, spec, th, th, (30, 20),
+                                   specs64=(spec64, spec64),
+                                   f64_bars=(0.0, 1e-2))
 
 
 @pytest.mark.parametrize("n_p,m_p,B,iters,want_ms,ratio", [
