@@ -34,7 +34,8 @@ fail loudly (non-zero exit) on any error:
   6. the full-width closed loop through the kernel: B=16384 rollouts of
      T=120 steps, 70%/70% loss, the bench's reference profile; every
      rollout feasible, every output finite, 2 kernel launches per step,
-     the tube invariant at every step;
+     the tube invariant at every step and Proposition 1 (``Hz (x_t -
+     x_hat_t) <= hz``) at every step with ``Theta_t = 1``;
   7. closed-loop parity at B=256: solver "cuda" against solver "admm" on
      the card and against solver "admm" in float64 on the CPU.
 
@@ -101,10 +102,10 @@ Then the rest of the paper's Results, the extended tube-tracking arm
      state, so ``x - x_nom`` is not held to Z, in the JAX package
      neither), ``max |phi| <= 0.3 + 1e-3`` on the nonlinear plant; rows
      and the apps' own checks printed, not gated (ADMM);
- 15. at full size in float64 ``ip_riccati``, side by side in two worker
-     processes (one after the other they took 604 s of a 905 s run on an
-     NVIDIA H100 80GB HBM3 machine with a slow host, three quarters of the
-     time this script may take): the Ext-RT-MPC arm on the linear plant
+ 15. at full size in float64 ``ip_riccati``, each in a worker process
+     (one after the other they took 604 s of a 905 s run on an NVIDIA
+     H100 80GB HBM3 machine with a slow host, three quarters of the time
+     this script may take): the Ext-RT-MPC arm on the linear plant
      and the RT-MPC arm on the nonlinear plant (B=200, T=250, the
      committed draws): feasible everywhere, the per-p mean RMS within
      1e-4 (relative) of the JAX package's float64 rows
@@ -147,7 +148,7 @@ need matplotlib):
  20. Fig. 3d under the structured interior point in float64: a one-tick
      CUDA graph of the RT-MPC controller holds the whole interior point
      (its fixed iteration budget, no read of the device); its capture and
-     instantiation times; its first 20 ticks equal the same ticks run
+     instantiation times; its first 5 ticks equal the same ticks run
      eagerly to 1e-9; then ``results_linear``'s solve-time statistics at
      its full T=250, one replay and one synchronize a tick, p50, p99 and
      max printed beside the card's name.  The same statistics under
@@ -177,7 +178,7 @@ need matplotlib):
      T=60, 2 launches a step, finite).
 
 Then data parallelism over rollouts (``rtmpc_tpu_torch/parallel/
-distributed.py``, ``parallel/ranks.py``, ``entry.py``), run last:
+distributed.py``, ``parallel/ranks.py``, ``entry.py``):
 
  24. (a) the flagship sweep at full width, ``run_mc_sweep(group=...)`` at
      B=16384 (one probability, 0.7), T=120, solver "cuda", float32,
@@ -194,7 +195,8 @@ distributed.py``, ``parallel/ranks.py``, ``entry.py``), run last:
      (d) a one-rank NCCL group on cuda:0 (``all_reduce``,
      ``all_gather_into_tensor`` on CUDA tensors), and (a) over NCCL on
      cuda:0 and cuda:1 where the machine has two cards (else printed as not
-     run).  K1 at a rank's B=8192 against its plain version, timed.
+     run); (a)-(d) run beside phase 15, after phase 26.  K1 at a rank's
+     B=8192 against its plain version, timed (after phase 23).
 
 Then the last solver modes (``rtmpc_tpu_torch/ops/ip_riccati.py:
 ip_riccati_solve_hybrid``, ``ops/qp.py:admm_solve(early_tol=...)``):
@@ -209,8 +211,8 @@ ip_riccati_solve_hybrid``, ``ops/qp.py:admm_solve(early_tol=...)``):
      the IP's device launches a step (launches an iteration from
      ``torch.profiler`` over short fixed-budget solves, times the
      iterations) printed; (b) Fig. 3d under ``ip_hybrid`` (phase 20's
-     method: the hybrid captured whole in a one-tick graph, its first 20
-     ticks equal the eager ones to 1e-9, p50, p99 and max over 120 ticks,
+     method: the hybrid captured whole in a one-tick graph, its first 5
+     ticks equal the eager ones to 1e-9, p50, p99 and max over 40 ticks,
      capture and instantiation seconds) beside phase 20's float64
      numbers; (c) the
      flagship's served shape (B=1, T=120) eagerly under solver "admm",
@@ -218,6 +220,26 @@ ip_riccati_solve_hybrid``, ``ops/qp.py:admm_solve(early_tol=...)``):
      the fixed budget: chunks a step and ms a step of each; feasible, the
      tube invariant at every step, the early-exit trajectory within 1e-3
      of the port's float64 CPU run under the same ``early_tol``.
+
+The interior points that run eagerly, bound by one host thread's
+launches (phases 10, 15, 19's dense IP half and 25 (a)), run side by side
+in three worker processes, started after phase 14, while this process
+runs the hardware parity gate (``rtmpc_tpu_torch/apps/device_checks.py``,
+the counterpart of ``tools/tpu_checks.py``) and then phase 24 (a)-(d);
+their times are times beside one another:
+
+ 26. ``device_checks.run("cuda")``: the closed loops on the card held to the
+     independent float64 protocol oracle
+     (``rtmpc_tpu_torch/utils/oracle_protocol.py``) on the JAX gate's
+     inputs: the flagship under the bench's float32 ADMM through K1 at B=1,
+     64 ("fac") and 65 ("smem"), the cartpole under the dense float32, the
+     hybrid and the float64 structured interior points and its ADMM at
+     200 + 200 iterations through K1 at B=1 ("fac") and 65 ("l2"), the
+     extended arm on the double integrator under the hybrid, the float64
+     structured IP and K1; Proposition 1 and tube membership on the card's
+     outputs; every check printed, its readings written to
+     ``build/chip_smoke/device_checks.json`` and printed a line each; any
+     failed check fails the script.
 
 Prints the kernels' JSON record on the line before the last and, as the
 last line, ``{"ok": true, "device": {...}}``.
@@ -473,6 +495,13 @@ def phase_full_loop(arrays, cfg, dev):
     viol = ((xs - outs.x_nom) @ arrays.Hz.T - arrays.hz).amax().item()
     print("tube invariant: max Hz(x - x_nom) - hz = %.3e" % viol)
     _require(viol <= TUBE_TOL, viol)
+    # Proposition 1: Hz (x_t - x_hat_t) <= hz wherever Theta_t = 1
+    consistent = outs.Theta == 1
+    prop1 = ((xs - outs.x_hat)[consistent] @ arrays.Hz.T
+             - arrays.hz).amax().item()
+    print("Proposition 1: max Hz(x - x_hat) - hz = %.3e over %d consistent "
+          "steps of %d" % (prop1, int(consistent.sum()), B_FULL * T))
+    _require(prop1 <= TUBE_TOL, prop1)
     err = tracking_error_rms(x0, outs.x, refs, carry.feasible).double().cpu()
     print("tracking_error_rms: mean %.6f median %.6f p99 %.6f max %.6f"
           % (err.mean().item(), err.median().item(),
@@ -589,12 +618,13 @@ def phase_k1_b1(arrays, arrays64, dev):
     return err, ms, plain_ms, bound, before
 
 
-def phase_examples():
-    """Phase 19: the six examples at full length, dense IP in float64 and
-    the kernel."""
+def phase_examples(solvers):
+    """Phase 19: the six examples at full length under ``solvers``: "ip"
+    (the dense IP in float64, run beside phase 15) and "cuda" (the
+    kernel)."""
     for name in EXAMPLES:
         mod = importlib.import_module("rtmpc_tpu_torch.apps.example_" + name)
-        for solver in ("ip", "cuda"):
+        for solver in solvers:
             args = mod.parse_args(["--device", "cuda", "--solver", solver])
             out = mod.run(args)
             print("example_%s --solver %s (%s): %s in %.3f s, %d kernel "
@@ -964,42 +994,98 @@ def phase_new_f64(app, arm, setups, out_dir):
     return res
 
 
-def _f64_arm_worker(app, arm, controller, out_dir):
-    """A worker process of phase 15: sets the arm's controller up and runs
-    ``phase_new_f64``.  Returns what it printed, the arm's sampled nominal
-    states and, if it failed, the traceback."""
+# The interior points that run eagerly (phases 10, 15, 19's dense IP half
+# and 25 (a)) are bound by one host thread's launches and leave the card
+# idle nine tenths of the time: they run side by side in worker processes,
+# the longest first, while this process runs phases 26 and 24 (a-d).  One
+# after the other (15's two arms side by side), phases 10, 15, 19's dense
+# IP half, 25 (a) and 26 took 563.7 s of an 896.2 s run on an NVIDIA H100
+# 80GB HBM3 at 700 W; side by side, without 24 (a-d), 335.0 s in another
+# run on the same model of card.
+SIDE_WORKERS = 3
+
+
+def _side_init():
     sys.meta_path.insert(0, _NoJax())
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    printed, x_nom, failure = io.StringIO(), None, None
+
+
+def _side_job(fn, *args):
+    """A worker process's job in ``phase_side_by_side``: ``fn(*args)`` with
+    its output captured.  Returns what it printed, its result and, if it
+    failed, the traceback."""
+    printed, result, failure = io.StringIO(), None, None
     with contextlib.redirect_stdout(printed):
         try:
-            from rtmpc_tpu_torch.apps.common import cartpole_controllers
-            from rtmpc_tpu_torch.apps.scenarios import cartpole_scenario
-            setups = cartpole_controllers(cartpole_scenario(), (controller,))
-            x_nom = phase_new_f64(app, arm, setups, out_dir).sample_x_nom
+            result = fn(*args)
             _require("jax" not in sys.modules)
         except Exception:
             failure = traceback.format_exc()
-    return printed.getvalue(), x_nom, failure
+    return printed.getvalue(), result, failure
 
 
-def phase_new_f64_side_by_side(out_dir):
-    """Phase 15: its two arms, each in a worker process (the interior point
-    is bound by one host thread's launches and leaves the card idle nine
-    tenths of the time; an arm's printed time is its time beside the
-    other).  Returns the last arm's sampled nominal states."""
+def _job_f64_arm(app, arm, controller, out_dir):
+    """Phase 15, one arm: sets its controller up and runs
+    ``phase_new_f64``.  Returns the arm's sampled nominal states."""
+    from rtmpc_tpu_torch.apps.common import cartpole_controllers
+    from rtmpc_tpu_torch.apps.scenarios import cartpole_scenario
+    setups = cartpole_controllers(cartpole_scenario(), (controller,))
+    return phase_new_f64(app, arm, setups, out_dir).sample_x_nom
+
+
+def _job_sweep_ip(out_dir):
+    """Phase 10: the Fig. 3a sweep in float64 ``ip_riccati`` at the app's
+    ``--quick`` depth."""
+    from rtmpc_tpu_torch.apps.common import cartpole_controllers
+    from rtmpc_tpu_torch.apps.scenarios import cartpole_scenario
+    sweep = phase_sweep(
+        "ip_riccati", os.path.join(out_dir, "results_linear_ip_riccati.json"),
+        cartpole_controllers(cartpole_scenario(), ("tube", "track")),
+        quick=True)
+    _require(sweep["ok"], "phase 10 checks")
+
+
+def _job_hybrid_sweep():
+    """Phase 25 (a), ``phase_hybrid_sweep``."""
+    from rtmpc_tpu_torch.apps.common import cartpole_controllers
+    from rtmpc_tpu_torch.apps.scenarios import cartpole_scenario
+    t0 = time.perf_counter()
+    sc = cartpole_scenario()
+    phase_hybrid_sweep(sc, cartpole_controllers(sc, ("tube",)),
+                       torch.device("cuda", 0))
+    print("phase 25 (a) took %.1f s" % (time.perf_counter() - t0))
+
+
+def phase_side_by_side(out_dir, meanwhile):
+    """Phases 15 (both arms), 10, 25 (a) and 19's dense interior point in
+    ``SIDE_WORKERS`` worker processes, while this process runs
+    ``meanwhile()``.  Each job's output is printed once all are done; the
+    times it printed are its times beside the others.  Returns phase 15's
+    last arm's sampled nominal states and what ``meanwhile()`` returned."""
+    jobs = [("phase 15, %s %s" % (app, arm), _job_f64_arm,
+             (app, arm, controller, out_dir))
+            for app, arm, controller in F64_ARMS]
+    jobs += [("phase 10", _job_sweep_ip, (out_dir,)),
+             ("phase 25 (a)", _job_hybrid_sweep, ()),
+             ("phase 19, the dense interior point", phase_examples,
+              (("ip",),))]
     t0 = time.perf_counter()
     with concurrent.futures.ProcessPoolExecutor(
-            len(F64_ARMS), multiprocessing.get_context("spawn")) as pool:
-        done = list(pool.map(_f64_arm_worker, *zip(*F64_ARMS),
-                             [out_dir] * len(F64_ARMS)))
-    for (app, arm, _), (printed, _, failure) in zip(F64_ARMS, done):
-        print("--- phase 15, %s %s ---\n%s"
-              % (app, arm, printed.rstrip() + "\n" + (failure or "")))
-    print("phase 15 took %.1f s, both arms side by side"
-          % (time.perf_counter() - t0))
-    _require(not any(failure for _, _, failure in done), "phase 15")
-    return done[-1][1]
+            SIDE_WORKERS, multiprocessing.get_context("spawn"),
+            initializer=_side_init) as pool:
+        futures = [pool.submit(_side_job, fn, *args) for _, fn, args in jobs]
+        own = meanwhile()
+        t_own = time.perf_counter() - t0
+        done = [f.result() for f in futures]
+    for (label, _, _), (printed, _, failure) in zip(jobs, done):
+        print("--- %s ---\n%s" % (label, printed.rstrip() + "\n"
+                                  + (failure or "")))
+    print("phases 10, 15, 19 (dense IP) and 25 (a) took %.1f s side by side "
+          "in %d processes (this process's own work %.1f s)"
+          % (time.perf_counter() - t0, SIDE_WORKERS, t_own))
+    _require(not any(failure for _, _, failure in done),
+             [label for (label, _, _), d in zip(jobs, done) if d[2]])
+    return done[len(F64_ARMS) - 1][1], own
 
 
 def phase_plant(sc, dev):
@@ -1022,7 +1108,9 @@ def phase_plant(sc, dev):
 
 # Phase 20, Fig. 3d through the captured interior point.
 T_FIG3D = 250             # results_linear's full T
-GRAPH_TICKS = 20          # captured ticks held to the eager ticks
+# captured ticks held to the eager ticks (cut from 20: an eager tick takes
+# 0.62 s in float64 and 1.35 s under the hybrid)
+GRAPH_TICKS = 5
 IP_GRAPH_TOL = 1e-9
 
 
@@ -1558,7 +1646,9 @@ def phase_data_parallel(setup, tube_setup, tube_res, dev):
 T_HYB = 20
 HYB_ROWS_RTOL = 1e-2      # hybrid per-p mean RMS against float64's
 EARLY_TOL = 1e-3          # the JAX package's BENCH_EARLY_TOL
-T_FIG3D_HYB = 120         # Fig. 3d's ticks under the hybrid (phase 20: 250)
+# Fig. 3d's ticks under the hybrid (phase 20: 250), cut from 120 to 40 to
+# make room for phase 26 (a hybrid tick is ~0.25 s through the graph).
+T_FIG3D_HYB = 40
 
 
 def _tube_sweep(sc, arrays, cfg, draws, T_run, dev):
@@ -1732,13 +1822,10 @@ def phase_early_exit_b1(setup, dev):
 
 
 def phase_hybrid_and_early_exit(sc, setups, setup, dev, fig3d_f64):
-    """Phase 25: (a) ``phase_hybrid_sweep``; (b) Fig. 3d under the hybrid
-    captured whole, beside phase 20's float64 numbers; (c)
-    ``phase_early_exit_b1``."""
-    t0 = time.perf_counter()
-    phase_hybrid_sweep(sc, setups, dev)
-    print("phase 25 (a) took %.1f s" % (time.perf_counter() - t0))
-    t1 = time.perf_counter()
+    """Phase 25 ((a), ``phase_hybrid_sweep``, runs beside phase 15): (b)
+    Fig. 3d under the hybrid captured whole, beside phase 20's float64
+    numbers; (c) ``phase_early_exit_b1``."""
+    t0 = t1 = time.perf_counter()
     st_h, (cap, inst) = phase_fig3d_ip(sc, setups, dev, solver="ip_hybrid",
                                        n_ticks=T_FIG3D_HYB)
     (st64, (cap64, inst64)) = fig3d_f64
@@ -1753,7 +1840,24 @@ def phase_hybrid_and_early_exit(sc, setups, setup, dev, fig3d_f64):
     t1 = time.perf_counter()
     phase_early_exit_b1(setup, dev)
     print("phase 25 (c) took %.1f s" % (time.perf_counter() - t1))
-    print("phase 25 took %.1f s" % (time.perf_counter() - t0))
+    print("phase 25 (b, c) took %.1f s" % (time.perf_counter() - t0))
+
+
+def phase_device_checks(out_dir):
+    """Phase 26: the hardware parity gate, ``apps/device_checks.py:run``
+    on the card (its checks print as they run); prints each reading of
+    its JSON on a line of its own and fails on any failed check."""
+    from rtmpc_tpu_torch.apps import device_checks
+    res = device_checks.run(
+        "cuda", out_json=os.path.join(out_dir, "device_checks.json"))
+    for key, value in res.items():
+        if isinstance(value, (int, float, str)) and key != "pass":
+            print("phase 26 %s: %s" % (key, value))
+    failed = [c["name"] for c in res["checks"] if not c["ok"]]
+    print("phase 26: %d of %d checks passed in %.1f s (%s)"
+          % (len(res["checks"]) - len(failed), len(res["checks"]),
+             res["seconds"], torch.cuda.get_device_name(0)))
+    _require(not failed, failed)
 
 
 def main():
@@ -1831,8 +1935,9 @@ def main():
     kernels[-1]["launches_counted_as"] = (
         "%d captured a window x %d replays of its CUDA graph"
         % (captured, served // captured))
-    phase_examples()
-    print("phases 17-19 took %.1f s" % (time.perf_counter() - t0))
+    phase_examples(("cuda",))
+    print("phases 17-19 took %.1f s (19's dense IP runs beside phase 15)"
+          % (time.perf_counter() - t0))
 
     # the Fig. 3a slice
     t0 = time.perf_counter()
@@ -1845,11 +1950,7 @@ def main():
     phase_crossover(arrays.admm,
                     _admm_qps(setups["tube"], dev)[""][0][0], dev)
     print("crossover sweep took %.1f s" % (time.perf_counter() - t0))
-    sweep = phase_sweep(
-        "ip_riccati",
-        os.path.join(out_dir, "results_linear_ip_riccati.json"), setups,
-        quick=True)
-    _require(sweep["ok"], "phase 10 checks")
+    # phase 10 runs beside phase 15
     # phase 11: the main path of the cluster path; counts from 0
     _reset_launches()
     out = phase_sweep("cuda", os.path.join(out_dir,
@@ -1902,7 +2003,18 @@ def main():
         "through the wrapper in phase 14's Ext-RT-MPC arm of Fig. 3d (the "
         "warm-up tick and the captured tick of its one-tick graph); each of "
         "the graph's replays runs the captured ones")
-    x_nom = phase_new_f64_side_by_side(out_dir)
+    # phases 15, 10, 25 (a) and 19's dense IP side by side; the hardware
+    # parity gate (phase 26) and the data-parallel ranks (phase 24 (a-d),
+    # each rank's counts from 0) in this process meanwhile
+    def meanwhile():
+        t0 = time.perf_counter()
+        phase_device_checks(out_dir)
+        print("phase 26 took %.1f s" % (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        launches = phase_data_parallel(setup, fig3a["tube"], out["tube"], dev)
+        print("phase 24 (a-d) took %.1f s" % (time.perf_counter() - t0))
+        return launches
+    x_nom, dp_launches = phase_side_by_side(out_dir, meanwhile)
     # phase 9, on the nominal states of the last arm (RT-MPC, float64)
     phase_ip_card_vs_cpu(sc, fig3a, dev, x_nom)
     phase_plant(sc, dev)
@@ -1941,9 +2053,8 @@ def main():
            "and 32+760)", "l2", launches, err, *timing)
     print("phase 23 took %.1f s" % (time.perf_counter() - t0))
 
-    # data parallelism over rollouts: each rank's counts from 0
+    # K1 at a data-parallel rank's shard
     t0 = time.perf_counter()
-    dp_launches = phase_data_parallel(setup, fig3a["tube"], out["tube"], dev)
     B_rank = B_FULL // DP_RANKS
     th = torch.tensor(np.random.default_rng(24).uniform(-2, 2, (B_rank, 4)),
                       dtype=torch.float32, device=dev)
@@ -1958,7 +2069,8 @@ def main():
     kernels[-1]["launches_counted_as"] = (
         "%d on each of %d gloo ranks (spawned processes, rank r on card r "
         "modulo the cards)" % (2 * T, DP_RANKS))
-    print("phase 24 took %.1f s" % (time.perf_counter() - t0))
+    print("phase 24, K1 at a rank's shard, took %.1f s"
+          % (time.perf_counter() - t0))
 
     # the hybrid interior point and the ADMM's early exit
     phase_hybrid_and_early_exit(sc, fig3a, setup, dev, fig3d_f64)
