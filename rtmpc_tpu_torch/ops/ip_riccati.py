@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..tree import tree_to
+from ..utils.spans import span
 from .assembly import QPTemplate
 
 __all__ = ["RiccatiIPSpec", "IPSolution", "prepare_ip_riccati",
@@ -754,55 +755,71 @@ def ip_riccati_solve(spec: RiccatiIPSpec, theta: torch.Tensor, N: int,
     best_score = torch.full((Bsz,), torch.finfo(dt).max, **kw)
     go = torch.ones(Bsz, dtype=torch.bool, device=dev)
     it = 0
-    while it < iters and (not early_exit or bool(go.any())):
-        x, u, w, y, mu_ss, lam, s = cur
-        rdx, rdu, rdxN, rdw, re_d, re_0, re_ss, ri = residuals(*cur)
-        mu = (lam * s).sum(1) / m_total
-        rnorm = kkt_norm(rdx, rdu, rdxN, rdw, re_d, re_0, re_ss)
-        # best-iterate tracking: Mehrotra can blow up after passing
-        # through an excellent point; the solve returns the best visited
-        score = rnorm + mu
-        better = go & (score < best_score) & torch.isfinite(score)
-        best_score = torch.where(better, score, best_score)
-        best = _where(better, cur, best)
-        pack = build_factor(lam, s)
 
-        def directions(rc):
-            t = (-rc + lam * ri) / s
-            dx, du, dw, dmu, dy = solve_newton(pack, t, rdx, rdu, rdxN, rdw,
-                                               re_d, re_ss, re_0)
-            da = ineq_products(dx, du, dw)
-            ds = -ri - da
-            dlam = (-rc - lam * ds) / s
-            return dx, du, dw, dmu, dy, ds, dlam
+    def go_on():
+        """Whether another iteration runs: one is left in the budget and,
+        with the early exit, some lane is active (a read of the device)."""
+        if it >= iters:
+            return False
+        if not early_exit:
+            return True
+        with span("ip.exit_read"):
+            return bool(go.any())
 
-        # predictor
-        dx_a, du_a, dw_a, dmu_a, dy_a, ds_a, dlam_a = directions(lam * s)
-        ap = max_step(s, ds_a)
-        ad = max_step(lam, dlam_a)
-        mu_aff = ((lam + ad[:, None] * dlam_a)
-                  * (s + ap[:, None] * ds_a)).sum(1) / m_total
-        sigma = ((mu_aff / torch.clamp_min(mu, eps)) ** 3).clamp(0.0, 1.0)
-        # corrector
-        rc = lam * s + dlam_a * ds_a - (sigma * mu)[:, None]
-        dx, du, dw, dmu, dy, ds, dlam = directions(rc)
-        ap = torch.clamp_max(0.99 * max_step(s, ds), 1.0)
-        ad = torch.clamp_max(0.99 * max_step(lam, dlam), 1.0)
+    more = go_on()
+    while more:
+        with span("ip.iteration"):
+            x, u, w, y, mu_ss, lam, s = cur
+            rdx, rdu, rdxN, rdw, re_d, re_0, re_ss, ri = residuals(*cur)
+            mu = (lam * s).sum(1) / m_total
+            rnorm = kkt_norm(rdx, rdu, rdxN, rdw, re_d, re_0, re_ss)
+            # best-iterate tracking: Mehrotra can blow up after passing
+            # through an excellent point; the solve returns the best visited
+            score = rnorm + mu
+            better = go & (score < best_score) & torch.isfinite(score)
+            best_score = torch.where(better, score, best_score)
+            best = _where(better, cur, best)
+            with span("ip.factor"):
+                pack = build_factor(lam, s)
 
-        # stop once both the barrier and the KKT residuals are down; a
-        # non-finite direction is neither applied nor re-attempted
-        done = (mu < stop_mu) & (rnorm < stop_r)
-        step_ok = torch.isfinite(
-            ap + ad + dx.sum((1, 2)) + du.sum((1, 2)) + dw.sum(1)
-            + dy.sum((1, 2)) + ds.sum(1) + dlam.sum(1))
-        go = (go & ~done & torch.isfinite(mu) & (mu > 0.01 * stop_mu)
-              & step_ok)
-        new = (x + lane(ap) * dx, u + lane(ap) * du, w + ap[:, None] * dw,
-               y + lane(ad) * dy, mu_ss + ad[:, None] * dmu,
-               torch.clamp_min(lam + ad[:, None] * dlam, tiny),
-               torch.clamp_min(s + ap[:, None] * ds, tiny))
-        cur = _where(go, new, cur)
-        it += 1
+            def directions(rc):
+                with span("ip.newton"):
+                    t = (-rc + lam * ri) / s
+                    dx, du, dw, dmu, dy = solve_newton(pack, t, rdx, rdu, rdxN,
+                                                       rdw, re_d, re_ss, re_0)
+                    da = ineq_products(dx, du, dw)
+                    ds = -ri - da
+                    dlam = (-rc - lam * ds) / s
+                return dx, du, dw, dmu, dy, ds, dlam
+
+            # predictor
+            dx_a, du_a, dw_a, dmu_a, dy_a, ds_a, dlam_a = directions(lam * s)
+            ap = max_step(s, ds_a)
+            ad = max_step(lam, dlam_a)
+            mu_aff = ((lam + ad[:, None] * dlam_a)
+                      * (s + ap[:, None] * ds_a)).sum(1) / m_total
+            sigma = ((mu_aff / torch.clamp_min(mu, eps)) ** 3).clamp(0.0, 1.0)
+            # corrector
+            rc = lam * s + dlam_a * ds_a - (sigma * mu)[:, None]
+            dx, du, dw, dmu, dy, ds, dlam = directions(rc)
+            ap = torch.clamp_max(0.99 * max_step(s, ds), 1.0)
+            ad = torch.clamp_max(0.99 * max_step(lam, dlam), 1.0)
+
+            # stop once both the barrier and the KKT residuals are down; a
+            # non-finite direction is neither applied nor re-attempted
+            done = (mu < stop_mu) & (rnorm < stop_r)
+            step_ok = torch.isfinite(
+                ap + ad + dx.sum((1, 2)) + du.sum((1, 2)) + dw.sum(1)
+                + dy.sum((1, 2)) + ds.sum(1) + dlam.sum(1))
+            go = (go & ~done & torch.isfinite(mu) & (mu > 0.01 * stop_mu)
+                  & step_ok)
+            new = (x + lane(ap) * dx, u + lane(ap) * du, w + ap[:, None] * dw,
+                   y + lane(ad) * dy, mu_ss + ad[:, None] * dmu,
+                   torch.clamp_min(lam + ad[:, None] * dlam, tiny),
+                   torch.clamp_min(s + ap[:, None] * ds, tiny))
+            cur = _where(go, new, cur)
+            it += 1
+            more = go_on()
     ip_riccati_solve.iterations += it
     ip_riccati_solve.calls += 1
 

@@ -55,6 +55,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from .qp import (ADMMSolution, ADMMSpec, ADMMState, init_admm_state,
                  problem_vectors)
 
@@ -479,11 +480,12 @@ def _launch(spec, theta, state, iters, path):
             x_o, y_o, z_o, rp, rd)]
         args = (*ptrs, B, n_p, m_p, nt, iters, spec.Kinv.data_ptr(),
                 spec.sigma.data_ptr())
-        if path == dispatched:
-            rc = lib.rtmpc_admm_solve_f32(*args, dev.index or 0, stream)
-        else:
-            rc = lib.rtmpc_admm_solve_f32_on_path(
-                *args, _PATH_CODES[path], dev.index or 0, stream)
+        with span("k1"):
+            if path == dispatched:
+                rc = lib.rtmpc_admm_solve_f32(*args, dev.index or 0, stream)
+            else:
+                rc = lib.rtmpc_admm_solve_f32_on_path(
+                    *args, _PATH_CODES[path], dev.index or 0, stream)
         if rc != 0:
             raise RuntimeError(f"admm_solve_cuda: kernel launch failed with "
                                f"CUDA error {rc} (path {path})")

@@ -69,6 +69,7 @@ from ..protocol.actuator import ActuatorState, actuator_step, init_actuator
 from ..protocol.estimator import (EstimatorState, estimator_update,
                                   init_estimator, store_sequence)
 from ..tree import tree_map, tree_to
+from ..utils.spans import span
 
 __all__ = ["RolloutCarry", "StepOutputs", "DirectOutputs", "init_carry",
            "make_batched_rollout", "make_direct_rollout",
@@ -304,44 +305,49 @@ def _step(arrays: ControllerArrays, cfg: ControllerConfig,
           actuator_mode: str, infeas_mode: Optional[str],
           plant_step: Callable, one_solve: bool,
           carry: RolloutCarry, ref_t, w_t, theta_t, gamma_t):
-    theta_qp = torch.cat([carry.est.x_hat, ref_t.to(carry.x.dtype)], dim=-1)
-    sol, admm_pr_new, cert_bad = _solve_step(arrays, cfg, infeas_mode,
-                                             one_solve, carry, theta_qp)
-    z = sol.z_primal
-    U_t, x_nom0, _ = _extract_packet(arrays, cfg, z)
-    finite = torch.isfinite(z.sum(dim=1))
-    bad_now = cert_bad | ~finite
-    infeas_count = torch.where(bad_now, carry.infeas_count + 1,
-                               torch.zeros_like(carry.infeas_count))
-    feasible = carry.feasible & (infeas_count < INFEAS_PERSIST) & finite
+    with span("solve"):
+        theta_qp = torch.cat([carry.est.x_hat, ref_t.to(carry.x.dtype)],
+                             dim=-1)
+        sol, admm_pr_new, cert_bad = _solve_step(arrays, cfg, infeas_mode,
+                                                 one_solve, carry, theta_qp)
+    # the packet, the estimator's store, the actuator, the plant, the
+    # estimator's update and the freeze
+    with span("protocol"):
+        z = sol.z_primal
+        U_t, x_nom0, _ = _extract_packet(arrays, cfg, z)
+        finite = torch.isfinite(z.sum(dim=1))
+        bad_now = cert_bad | ~finite
+        infeas_count = torch.where(bad_now, carry.infeas_count + 1,
+                                   torch.zeros_like(carry.infeas_count))
+        feasible = carry.feasible & (infeas_count < INFEAS_PERSIST) & finite
 
-    est1 = store_sequence(carry.est, U_t, x_nom0)
-    u_t, plant_pkt, act_new, aux = actuator_step(
-        carry.act, U_t, carry.est.q, x_nom0, carry.x, theta_t,
-        arrays.A, arrays.B, arrays.K_ss, arrays.K_plant, cfg.N,
-        mode=actuator_mode, extended=cfg.extended)
-    x_next = plant_step(carry.x, u_t, w_t)
-    est_new = estimator_update(est1, plant_pkt, gamma_t, arrays.A, arrays.B,
-                               U_t, robust=cfg.extended)
+        est1 = store_sequence(carry.est, U_t, x_nom0)
+        u_t, plant_pkt, act_new, aux = actuator_step(
+            carry.act, U_t, carry.est.q, x_nom0, carry.x, theta_t,
+            arrays.A, arrays.B, arrays.K_ss, arrays.K_plant, cfg.N,
+            mode=actuator_mode, extended=cfg.extended)
+        x_next = plant_step(carry.x, u_t, w_t)
+        est_new = estimator_update(est1, plant_pkt, gamma_t, arrays.A,
+                                   arrays.B, U_t, robust=cfg.extended)
 
-    new_carry = RolloutCarry(x=x_next, act=act_new, est=est_new,
-                             admm=sol.state, admm_pr=admm_pr_new,
-                             prev_gamma=gamma_t, feasible=feasible,
-                             infeas_count=infeas_count)
-    # a frozen rollout keeps its state, but its timers advance so the
-    # indices stay aligned with the time loop
-    frozen = RolloutCarry(
-        x=carry.x,
-        act=carry.act._replace(t=carry.act.t + 1),
-        est=carry.est._replace(t=carry.est.t + 1),
-        admm=carry.admm, admm_pr=carry.admm_pr, prev_gamma=gamma_t,
-        feasible=feasible, infeas_count=infeas_count)
-    out_carry = tree_map(lambda a, b: _select(feasible, a, b),
-                         new_carry, frozen)
-    out = StepOutputs(
-        x=out_carry.x, u=u_t, x_nom=aux["x_nom"], x_hat=carry.est.x_hat,
-        Theta=aux["Theta"], r_prim=sol.r_prim, r_dual=sol.r_dual,
-        feasible=feasible)
+        new_carry = RolloutCarry(x=x_next, act=act_new, est=est_new,
+                                 admm=sol.state, admm_pr=admm_pr_new,
+                                 prev_gamma=gamma_t, feasible=feasible,
+                                 infeas_count=infeas_count)
+        # a frozen rollout keeps its state, but its timers advance so the
+        # indices stay aligned with the time loop
+        frozen = RolloutCarry(
+            x=carry.x,
+            act=carry.act._replace(t=carry.act.t + 1),
+            est=carry.est._replace(t=carry.est.t + 1),
+            admm=carry.admm, admm_pr=carry.admm_pr, prev_gamma=gamma_t,
+            feasible=feasible, infeas_count=infeas_count)
+        out_carry = tree_map(lambda a, b: _select(feasible, a, b),
+                             new_carry, frozen)
+        out = StepOutputs(
+            x=out_carry.x, u=u_t, x_nom=aux["x_nom"], x_hat=carry.est.x_hat,
+            Theta=aux["Theta"], r_prim=sol.r_prim, r_dual=sol.r_dual,
+            feasible=feasible)
     return out_carry, out
 
 

@@ -37,6 +37,7 @@ import torch
 from ..models.specs import ControllerArrays, ControllerConfig
 from ..ops.qp_cuda import admm_solve_cuda
 from ..tree import tree_map
+from ..utils.spans import span
 from .rollout import StepOutputs, init_carry, make_batched_rollout
 
 __all__ = ["Session"]
@@ -117,13 +118,15 @@ class Session:
         graph's static tensors, overwritten by the next call, and the call
         returns before the device has finished (synchronize to read
         them)."""
-        self.refs[0].copy_(refs)
-        self.w[0].copy_(w)
-        self.theta[0].copy_(theta)
-        self.gamma[0].copy_(gamma)
+        with span("session.copy_in"):
+            self.refs[0].copy_(refs)
+            self.w[0].copy_(w)
+            self.theta[0].copy_(theta)
+            self.gamma[0].copy_(gamma)
         if self.graph is None:
             return self._body()
-        self.graph.replay()
+        with span("session.replay"):
+            self.graph.replay()
         self.replays += 1
         return self.outs
 

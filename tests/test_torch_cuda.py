@@ -178,12 +178,66 @@ def _step_profile(*args):
 
 def test_step_profile_reads_the_kernel(flagship_cuda):
     """The step profiler finds both ADMM launches of every step in the
-    profiler's device events."""
+    profiler's device events, and credits them to the span that launched
+    them, ``rtmpc.k1``: 2 a step, with the device time of the events named
+    ``admm_kernel``; every device operation is credited once."""
     res = _step_profile("--batch", 64, "--steps", 2)
     assert res["k1_launches_per_step"] == 2
     assert 0 < res["k1_share_of_device_time"] <= 1
     assert 0 < res["busy_share_profiled"] <= 1.05
     assert res["other_device_ops_per_step"] > 0
+    spans = res["spans"]
+    k1 = spans["rtmpc.k1"]
+    assert k1["count"] == k1["device_ops"] == 2 * 2
+    assert k1["device_ms"] == pytest.approx(4 * res["k1_ms_per_launch"],
+                                            rel=1e-9)
+    assert spans["rtmpc.solve"]["count"] == 2
+    assert spans["rtmpc.protocol"]["count"] == 2
+    assert spans["rtmpc.protocol"]["device_ops"] > 0
+    assert sum(r["device_ops"] for r in spans.values()) == 2 * (
+        res["k1_launches_per_step"] + res["other_device_ops_per_step"])
+
+
+def test_step_profile_credits_k1_on_the_sweeps_path(flagship_cuda):
+    """At the Monte-Carlo sweep's batch (B=16384: K1's smem path) the
+    device time credited by launch to ``rtmpc.k1`` is that of the events
+    named ``admm_kernel``, 2 a step; every device operation is credited
+    once, and the protocol's are part of the step's other operations."""
+    res = _step_profile("--steps", 2)
+    assert res["k1_path"] == "smem"
+    spans = res["spans"]
+    k1 = spans["rtmpc.k1"]
+    assert k1["count"] == k1["device_ops"] == 2 * 2
+    assert k1["device_ms"] == pytest.approx(4 * res["k1_ms_per_launch"],
+                                            rel=1e-9)
+    assert sum(r["device_ops"] for r in spans.values()) == 2 * (
+        res["k1_launches_per_step"] + res["other_device_ops_per_step"])
+    assert res["protocol_device_ms_per_step"] == pytest.approx(
+        spans["rtmpc.protocol"]["device_ms"] / 2)
+    assert (0 < res["protocol_device_ms_per_step"]
+            < res["other_device_ms_per_step"])
+
+
+def test_step_profile_reads_the_session(flagship_cuda):
+    """``--session``: every device operation of a tick is launched inside
+    its ``rtmpc.session.copy_in`` (the four input copies) or its
+    ``rtmpc.session.replay`` (the captured graph, K1's 2 launches among
+    them); the captured step's own spans ran at capture, not at replay."""
+    ticks = 20
+    res = _step_profile("--session", "--steps", ticks)
+    spans = res["spans"]
+    assert set(spans) == {"rtmpc.session.copy_in", "rtmpc.session.replay"}
+    copy_in, replay = (spans["rtmpc.session.copy_in"],
+                       spans["rtmpc.session.replay"])
+    assert copy_in["count"] == replay["count"] == ticks
+    assert copy_in["device_ops"] == 4 * ticks
+    assert res["captured_launches"] == res["k1_launches_per_tick"] == 2
+    assert replay["device_ops"] % ticks == 0
+    assert replay["device_ops"] > 2 * ticks
+    assert (copy_in["device_ops"] + replay["device_ops"]
+            == res["device_ops_per_tick"] * ticks)
+    assert 0 < res["tick_copy_in_host_ms"]
+    assert 0 < res["tick_replay_host_ms"]
 
 
 # ---------------------------------------------------------------------------
@@ -450,12 +504,18 @@ def test_step_profile_reads_the_extended_step(extended):
                         "extended", "--solver", "cuda", "--plant",
                         "nonlinear")
     assert res["k1_launches_per_step"] == 4
+    assert res["spans"]["rtmpc.k1"]["device_ops"] == 4 * 2
     assert res["plant_device_ops_per_call"] > 10
     res = _step_profile("--batch", 8, "--steps", 1, "--controller",
                         "extended", "--solver", "ip_riccati", "--plant",
                         "linear")
     assert res["ip_iterations_per_step"] > 3
     assert "k1_ms_per_launch" not in res
+    # the profiled step runs the iterations of the timed one
+    assert (res["spans"]["rtmpc.ip.iteration"]["count"]
+            == res["ip_iterations_per_step"])
+    assert (res["ip_dispatch_ms_per_iteration"]
+            > res["ip_exit_wait_ms_per_iteration"] > 0)
 
 
 # ---------------------------------------------------------------------------
